@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`xmask3d_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+  1. build the CUDA kernels from `xmask3d_tpu_torch/csrc/` (one nvcc each,
+     in parallel);
+  2. build the full-width B15N4 model in bf16 with seeded weights drawn on
+     the card, its statics through the CLIP text tower, and four synthetic
+     views at the bench's default capacities (32768 points, 24576 voxels,
+     512x512 image, 77-token context);
+  3. run one warm-up view while recording every kernel call (through the
+     wrappers' recorder hook), then hold each kernel against its plain
+     PyTorch version on those recorded inputs, call by call (in bf16 as
+     recorded, and again in fp32), and time both per view;
+  4. one uncounted view to refill the allocator's cache, then the main
+     path: three views through the serving view body (forward,
+     routing, vote) with every launch counter set to 0 first; checks the
+     launch counts, the vote table and the outputs, and profiles one more
+     view (device time by kernel, the device's idle share);
+  5. the tiny model on the card (fp32, kernels) against the same model on
+     the CPU (plain versions).
+
+The last line of standard output is `{"ok": true, "device": {...}}`; the
+line before it is the `kernels` JSON object, and the one before that the
+card's name and power limit from nvidia-smi. Exits non-zero, printing no
+result, without CUDA or outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "configs", "scannet", "xmask3d_scannet_B15N4.yaml")
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the tensor cores
+
+# per-kernel tolerance on max |kernel - plain|, relative to max(1, max |plain|):
+# bf16 outputs round at 2^-8 relative, so two output ulps; fp32 differs only
+# by summation order
+TOL = {"bf16": 2.0 ** -7, "fp32": 1e-4}
+
+
+def log(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# expected launches per view, derived from the configuration
+# --------------------------------------------------------------------------
+
+
+def expected_launches(mc) -> dict:
+    from xmask3d_tpu_torch.models.minkunet import _VARIANTS
+
+    # K1: the fused k5 stem, then per net 4 stride-2 down convs and two
+    # k3 convs per residual block
+    k1 = 1 + sum(4 + 2 * sum(_VARIANTS[a][1]) for a in (mc.arch_3d, mc.arch_binary_head))
+    # K2: self + cross attention per SD UNet spatial transformer that runs
+    # before the last tap is taken, plus the VAE encoder and decoder mid blocks
+    u = mc.ldm.unet
+    n_lv = len(u.ch_mult)
+    blocks = sum(u.num_res_blocks for lv in range(n_lv) if lv in u.attention_levels) + 1
+    last, idx = max(mc.ldm.unet_block_indices), 0
+    for lv in reversed(range(n_lv)):
+        for _ in range(u.num_res_blocks + 1):
+            if idx < last and lv in u.attention_levels:
+                blocks += 1
+            idx += 1
+    k2 = 2 * blocks * len(mc.ldm.steps) + 2
+    # K3: one sampling call per deformable encoder layer
+    return {"sparse_conv": k1, "flash_attention": k2, "deform_attn": mc.pixel_enc_layers}
+
+
+# --------------------------------------------------------------------------
+# recording the main path's kernel calls
+# --------------------------------------------------------------------------
+
+
+def kernel_table():
+    from xmask3d_tpu_torch.ops import deform_attn, flash_attention, sparse_conv
+
+    return {
+        "sparse_conv": {
+            "fn": sparse_conv.sparse_conv, "plain": sparse_conv.sparse_conv_reference,
+            "source": "xmask3d_tpu_torch/csrc/sparse_conv.cu",
+            "replaces": "xmask3d_tpu/ops/sparse_conv_pallas.py:279",
+        },
+        "flash_attention": {
+            "fn": flash_attention.attention, "plain": flash_attention.reference_attention,
+            "source": "xmask3d_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "xmask3d_tpu/ops/flash_attention.py:65",
+        },
+        "deform_attn": {
+            "fn": deform_attn.ms_deform_attn, "plain": deform_attn.ms_deform_attn_reference,
+            "source": "xmask3d_tpu_torch/csrc/deform_attn.cu",
+            "replaces": "xmask3d_tpu/ops/deform_attn.py:190",
+        },
+    }
+
+
+def _clone(x):
+    import torch
+
+    if torch.is_tensor(x):
+        return x.clone()
+    return copy.deepcopy(x)
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Keep a copy of the (positional) arguments of every kernel wrapper
+    call, through the wrappers' recorder hook, then unset the hook."""
+    from xmask3d_tpu_torch.ops import _build
+
+    def rec(name, args):
+        calls[name].append(tuple(_clone(a) for a in args))
+
+    _build.RECORDER = rec
+    try:
+        yield
+    finally:
+        _build.RECORDER = None
+
+
+def launches():
+    return {name: k["fn"].launches for name, k in kernel_table().items()}
+
+
+def reset_launches():
+    for k in kernel_table().values():
+        k["fn"].launches = 0
+
+
+# --------------------------------------------------------------------------
+# kernel checks and timings on the recorded calls
+# --------------------------------------------------------------------------
+
+
+def as_fp32(call):
+    import torch
+
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+                 for a in call)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def work(name, call, out):
+    """(bytes the function must move, operations it needs) for one call,
+    counted from this call's data."""
+    import torch
+
+    if name == "sparse_conv":
+        feats, w, kmap, bias, valid = call
+        live = torch.ones(kmap.shape[::2], dtype=torch.bool, device=kmap.device) \
+            if valid is None else valid
+        # map columns of live outputs only (tiles with no live row are
+        # skipped), and each feature row that a live output references, once
+        n_live = int(live.sum())
+        rows = sum(int(torch.unique(kmap[i][:, live[i]][kmap[i][:, live[i]] >= 0]).numel())
+                   for i in range(kmap.shape[0]))
+        hits = (kmap >= 0) & live[:, None, :]
+        ops = 2 * int(hits.sum()) * w.shape[1] * w.shape[2]
+        moved = (kmap.shape[1] * n_live * kmap.element_size()
+                 + rows * feats.shape[2] * feats.element_size()
+                 + nbytes(w, bias, valid, out))
+        return moved, ops
+    if name == "flash_attention":
+        q, k, v = call
+        b, h, tq, d = q.shape
+        return nbytes(q, k, v, out), 4 * b * h * tq * k.shape[2] * d
+    value, _, loc, aw = call
+    b, lq, heads, n_lv, npts, _ = loc.shape
+    # four taps, one multiply-add per channel each
+    return nbytes(value, loc, aw, out), 8 * b * lq * heads * n_lv * npts * value.shape[3]
+
+
+def bound(name, calls, outs):
+    """(least ms for the calls, "bytes" or "operations"): per call the larger
+    of its bytes over the memory rate and its operations over the peak rate
+    of their type (bf16 tensor cores, or fp32 for the deformable sampling,
+    whose bilinear weights are fp32)."""
+    peak = PEAK_OPS["fp32"] if name == "deform_attn" else PEAK_OPS["bf16"]
+    times = [(b / HBM_BYTES_PER_S, ops / peak) for b, ops in
+             (work(name, c, o) for c, o in zip(calls, outs))]
+    total = sum(max(t) for t in times) * 1e3
+    by_bytes = sum(t[0] for t in times) >= sum(t[1] for t in times)
+    return total, "bytes" if by_bytes else "operations"
+
+
+def time_calls(fn, calls, reps: int) -> float:
+    """Device ms for one pass over `calls` (a view's worth of launches)."""
+    import torch
+
+    for args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for args in calls:
+            fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_err(fn, plain, calls, tol):
+    """Each call held to its own scale: per call, |kernel - plain| against
+    tol * max(1, max |plain|). Returns (max abs error, the worst call's
+    error / its tolerance, that call's index and max |plain|, outputs)."""
+    import torch
+
+    err, worst, at, at_scale = 0.0, -1.0, -1, 0.0
+    outs = []
+    for i, args in enumerate(calls):
+        got = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{fn.__name__}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{fn.__name__}: non-finite kernel output")
+        e = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        ratio = e / (tol * max(1.0, scale))
+        err = max(err, e)
+        if ratio > worst:
+            worst, at, at_scale = ratio, i, scale
+        outs.append(got)
+    return err, worst, at, at_scale, outs
+
+
+def check_kernels(table, calls) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for name, k in table.items():
+        cs = calls[name]
+        if not cs:
+            raise AssertionError(f"{name}: the main path made no call")
+        errs = {}
+        for dtype in ("bf16", "fp32"):
+            cd = cs if dtype == "bf16" else [as_fp32(c) for c in cs]
+            err, worst, at, at_scale, outs = max_err(k["fn"], k["plain"], cd, TOL[dtype])
+            log({"phase": "kernel_check", "kernel": name, "dtype": dtype, "calls": len(cd),
+                 "max_abs_err": err, "tol_per_call": f"{TOL[dtype]} * max(1, max |plain|)",
+                 "worst_err_over_tol": worst, "worst_call": at,
+                 "worst_call_max_abs_plain": at_scale, "ok": worst <= 1.0})
+            if not worst <= 1.0:
+                raise AssertionError(f"{name} ({dtype}): call {at} is {worst}x its tolerance")
+            errs[dtype] = err
+            if dtype == "bf16":
+                bound_ms, bound_by = bound(name, cs, outs)
+            del outs
+        reps = 5
+        t = [time_calls(k["plain"], cs, 2), time_calls(k["fn"], cs, reps),
+             time_calls(k["fn"], cs, reps), time_calls(k["plain"], cs, 2)]
+        library = None
+        if name == "flash_attention":
+            library = time_calls(F.scaled_dot_product_attention, cs, reps)
+        row = {
+            "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
+            "launches": None, "max_abs_err": errs["bf16"],
+            "ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+        }
+        log({"phase": "kernel_time", "kernel": name, "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": bound_ms, "library_ms": library, "runs_ms": t})
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+
+def check_outputs(outputs, caps, mc) -> None:
+    import torch
+
+    q = mc.num_queries
+    expect = {
+        "fused_pred_feature": (1, caps.max_points, mc.projection_dim),
+        "pred_logits": (1, q, mc.num_test_classes + 1),
+        "mask_embed_clip": (1, q, mc.projection_dim),
+        "final_mask_3d": (1, q, caps.max_points),
+        "pred_labels": (1, q),
+    }
+    for key, shape in expect.items():
+        t = outputs[key]
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{key}: shape {tuple(t.shape)} != {shape}")
+        if t.is_floating_point() and not torch.isfinite(t.float()).all():
+            raise AssertionError(f"{key}: non-finite values")
+
+
+def profile_view(view_body, batch, statics, votes, counter) -> dict:
+    """One more view under torch.profiler: device time per kernel name (the
+    largest twelve), the three port kernels' share, and how much of the
+    view's host wall time the device was busy (the union of kernel
+    intervals)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        view_body(batch, statics, votes, counter)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_name, busy_us, end = {}, 0.0, float("-inf")
+    for start, stop, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    ours = {k: sum(ms for n, ms in by_name.items() if k in n)
+            for k in ("sparse_conv_kernel", "flash_fwd_kernel", "deform_attn_kernel")}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {
+        "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
+        "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+        "port_kernels_ms": ours,
+        "top": [[n[:80], ms] for n, ms in ranked[:12]],
+    }
+
+
+def _to(tree, dev):
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return [_to(v, dev) for v in tree]
+
+
+def trunk_stages(model, batch, statics, given=None):
+    """The eval trunk stage by stage; with `given` (another run's stage
+    outputs) each stage takes its inputs from there, so stages are compared
+    one at a time."""
+    g = given or {}
+    out = {"run_3d": model.run_3d(batch)}
+    img01 = batch["img"] / 255.0
+    imp = g.get("run_3d", out["run_3d"])["imp_condition"]
+    out["backbone"] = model.backbone(img01, imp, statics["uncond_tokens"])
+    mf, ms = model.pixel_decoder(g.get("backbone", out["backbone"]))
+    out["pixel_decoder"] = {"mask_features": mf, "ms": ms}
+    src = g.get("pixel_decoder", out["pixel_decoder"])
+    dec = model.mask_decoder(src["ms"], src["mask_features"])
+    out["mask_decoder"] = {"pred_masks": dec["pred_masks"], "mask_embed": dec["mask_embed"]}
+    masks = g.get("mask_decoder", out["mask_decoder"])["pred_masks"]
+    out["maskclip"] = {"mask_embed_clip": model._clip_mask_embed(img01, masks)}
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def reference_check(cfg_path) -> dict:
+    """Tiny model, fp32: the card (kernels) against the CPU (plain versions)
+    on the same weights and batch, stage by stage with the CPU's stage
+    inputs, within 2e-3 of each output's largest value (the eval golden's
+    tolerance);
+    then the whole eval forward, whose discrete outputs must agree on 99%."""
+    import torch
+
+    from xmask3d_tpu_torch.config import load_config
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+
+    cfg = load_config(cfg_path)
+    cfg.update(mask_shape=[24, 32], compute_dtype="float32")
+    caps = Capacities(max_points=512, max_voxels=256, max_targets=8)
+    cpu = build_model(cfg, tiny=True, seed=1, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    kw = dict(seed=3, num_points=400, image_size=(64, 64), mask_shape=(24, 32),
+              context_length=16, vocab_size=512)
+    b_cpu = synthetic_batch(1, caps, device="cpu", **kw)
+    b_gpu = synthetic_batch(1, caps, device="cuda", **kw)
+    s_cpu = build_statics(cpu, cfg, device="cpu")
+    s_gpu = build_statics(gpu, cfg, device="cuda")
+    with torch.no_grad():
+        ref = trunk_stages(cpu, b_cpu, s_cpu)
+        got = trunk_stages(gpu, b_gpu, s_gpu, given=_to(ref, "cuda"))
+    report, bad = {"phase": "reference_tiny_fp32"}, []
+    for (key, a), (_, b) in zip(_leaves(ref), _leaves(got)):
+        err = float((a.float() - b.float().cpu()).abs().max())
+        tol = 2e-3 * float(a.float().abs().max()) + 1e-6
+        report[key] = err
+        if not err <= tol:
+            bad.append(f"{key}: {err} > {tol}")
+    out_cpu = cpu.eval_forward(b_cpu, s_cpu)
+    out_gpu = gpu.eval_forward(b_gpu, s_gpu)
+    for key in ("final_mask_3d", "pred_labels", "binary_pred"):
+        frac = float((out_cpu[key] != out_gpu[key].cpu()).float().mean())
+        report[f"{key}_mismatch"] = frac
+        if frac > 0.01:
+            bad.append(f"{key} disagrees on {frac:.2%}")
+    if bad:
+        log(report)
+        raise AssertionError("tiny reference: " + "; ".join(bad))
+    return report
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "xmask3d_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    # fp32 stays fp32 on the card: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from xmask3d_tpu_torch.config import load_config
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+    from xmask3d_tpu_torch.engine.serve import fresh_vote_state, make_view_body
+    from xmask3d_tpu_torch.ops import _build
+
+    card = card_line()
+    log({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+         "cuda": torch.version.cuda})
+
+    t0 = time.time()
+    _build.build_all()
+    log({"phase": "build", "seconds": time.time() - t0, "kernels": list(_build.KERNELS)})
+
+    t0 = time.time()
+    cfg = load_config(CONFIG)
+    caps = Capacities(max_points=32768, max_voxels=24576, max_targets=24)
+    model = build_model(cfg, seed=0)
+    mc = model.cfg
+    statics = build_statics(model, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    t_model = time.time() - t0
+    t0 = time.time()
+    views = [
+        synthetic_batch(1, caps, seed=100 + i, num_points=20000, image_size=(512, 512),
+                        mask_shape=tuple(cfg.mask_shape), context_length=77, vocab_size=49408)
+        for i in range(4)
+    ]
+    log({"phase": "setup", "params": n_params, "dtype": str(mc.dtype),
+         "model_seconds": t_model, "views_seconds": time.time() - t0,
+         "live_voxels": [int(v["hierarchy"].levels[0].num[0]) for v in views],
+         "live_points": [int(v["point_valid"].sum()) for v in views]})
+
+    view_body = make_view_body(model, cfg)
+    table = kernel_table()
+    expected = expected_launches(mc)
+
+    # warm-up view, recording every kernel call of the path
+    calls = {name: [] for name in table}
+    reset_launches()
+    with recording(calls):
+        votes, counter = fresh_vote_state(caps.max_points, mc.num_test_classes)
+        t0 = time.time()
+        view_body(views[0], statics, votes, counter)
+        torch.cuda.synchronize()
+    log({"phase": "warmup_view", "ms": (time.time() - t0) * 1e3,
+         "recorded": {n: len(c) for n, c in calls.items()}, "launches": launches()})
+    for name, n in expected.items():
+        if len(calls[name]) != n or launches()[name] != n:
+            raise AssertionError(f"{name}: {len(calls[name])} calls, {launches()[name]} "
+                                 f"launches in the warm-up view, expected {n}")
+
+    rows = check_kernels(table, calls)
+    del calls
+    torch.cuda.empty_cache()
+    # the kernel checks emptied the allocator's cache: one uncounted view
+    # fills it again, so the counted views time the path and not cudaMalloc
+    votes, counter = fresh_vote_state(caps.max_points, mc.num_test_classes)
+    t0 = time.time()
+    view_body(views[0], statics, votes, counter)
+    torch.cuda.synchronize()
+    log({"phase": "rewarm_view", "ms": (time.time() - t0) * 1e3})
+
+    # the main path, counted: three views through the view body
+    votes, counter = fresh_vote_state(caps.max_points, mc.num_test_classes)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    view_ms = []
+    for batch in views[1:]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        votes, counter = view_body(batch, statics, votes, counter)
+        torch.cuda.synchronize()
+        view_ms.append((time.time() - t0) * 1e3)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_views = len(views) - 1
+    log({"phase": "main_path", "views": n_views, "view_ms": view_ms,
+         "mean_view_ms": sum(view_ms) / n_views, "peak_mem_bytes": peak,
+         "launches": counts, "expected_per_view": expected})
+    for name, n in expected.items():
+        if counts[name] != n * n_views:
+            raise AssertionError(f"{name}: {counts[name]} launches, expected {n * n_views}")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+
+    valid = sum(int(b["point_valid"].sum()) for b in views[1:])
+    if int(counter.sum()) != valid or int(votes.sum()) != valid:
+        raise AssertionError(f"votes {int(votes.sum())} / counter {int(counter.sum())} "
+                             f"!= {valid} valid view points")
+    log(profile_view(view_body, views[1], statics, votes, counter))
+    outputs = model.eval_forward(views[1], statics)
+    check_outputs(outputs, caps, mc)
+    log({"phase": "outputs", "ok": True,
+         "pred_labels": outputs["pred_labels"][0, :10].tolist(),
+         "final_masks": int(outputs["final_mask_valid"].sum())})
+    del model, outputs, views
+    torch.cuda.empty_cache()
+
+    log(reference_check(CONFIG))
+
+    print(card, flush=True)
+    log({"kernels": rows})
+    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""Static-shape batch assembly: own copy of `xmask3d_tpu/data/batching.py`.
+
+Each per-view sample is padded to configured capacities; the batch is a dict
+of tensors on the chosen device with validity masks, and `hierarchy` is a
+`SparseHierarchy` of tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from xmask3d_tpu_torch.device import resolve_device
+from xmask3d_tpu_torch.ops.sparse_conv import build_hierarchy, stack_hierarchies
+
+
+@dataclass
+class Capacities:
+    """Static capacities for one view-sample."""
+
+    max_points: int = 65536
+    max_voxels: int = 49152
+    max_targets: int = 24
+    num_levels: int = 5
+    level_divisors: Sequence[int] = (1, 2, 4, 8, 16)
+
+    def level_caps(self):
+        return tuple(max(16, self.max_voxels // d) for d in self.level_divisors)
+
+
+def _pad1(x: np.ndarray, n: int, fill=0):
+    out = np.full((n,) + x.shape[1:], fill, dtype=x.dtype)
+    m = min(len(x), n)
+    out[:m] = x[:m]
+    return out
+
+
+@dataclass
+class ViewSample:
+    """One (scene-view) sample before padding. All numpy."""
+
+    voxel_coords: np.ndarray  # (V, 3) int32
+    voxel_feats: np.ndarray  # (V, 3) float32 in [-1, 1]
+    inds_reconstruct: np.ndarray  # (P,) point -> voxel row
+    labels_3d: np.ndarray  # (P,)
+    binary_label_3d: np.ndarray  # (P,) float32
+    x_label: np.ndarray  # (P,) row in mask space
+    y_label: np.ndarray  # (P,) col in mask space
+    img: np.ndarray  # (H, W, 3) float32, 0..255 (NHWC)
+    label_2d: np.ndarray  # (H, W)
+    binary_label_2d: np.ndarray  # (128, 128) float32
+    caption_tokens: np.ndarray  # (T,) int32
+
+
+def pack_targets(label_2d: np.ndarray, max_targets: int):
+    """GT target labels from the unique 2D-label values, -1 padded."""
+    uniq = np.unique(label_2d)
+    labels = np.full((max_targets,), -1, dtype=np.int32)
+    labels[: min(len(uniq), max_targets)] = uniq[:max_targets]
+    return labels, labels >= 0
+
+
+def collate_views(
+    samples: List[ViewSample], caps: Capacities, device=None
+) -> Dict[str, Any]:
+    """Pad and stack view samples into a fixed-shape batch of tensors on
+    `device` (the GPU unless "cpu" is asked for)."""
+    device = resolve_device(device)
+    p, v = caps.max_points, caps.max_voxels
+    hs, vox_feats, point_valid, tgt_labels, tgt_valid = [], [], [], [], []
+    fields: Dict[str, List[np.ndarray]] = {
+        k: [] for k in ("inds_reconstruct", "labels_3d", "binary_label_3d", "x_label", "y_label")
+    }
+    for s in samples:
+        coords = np.clip(s.voxel_coords[:v].astype(np.int32), 0, 1023)
+        hs.append(build_hierarchy(coords, caps.level_caps()))
+        vox_feats.append(_pad1(s.voxel_feats.astype(np.float32), v))
+        pv = np.zeros((p,), bool)
+        pv[: min(len(s.inds_reconstruct), p)] = True
+        ir = _pad1(s.inds_reconstruct.astype(np.int32), p)
+        pv &= ir < v  # points whose voxel fell beyond capacity
+        point_valid.append(pv)
+        fields["inds_reconstruct"].append(np.where(pv, ir, 0))
+        fields["labels_3d"].append(_pad1(s.labels_3d.astype(np.int32), p))
+        fields["binary_label_3d"].append(_pad1(s.binary_label_3d.astype(np.float32), p))
+        fields["x_label"].append(_pad1(s.x_label.astype(np.int32), p))
+        fields["y_label"].append(_pad1(s.y_label.astype(np.int32), p))
+        tl, tv = pack_targets(s.label_2d, caps.max_targets)
+        tgt_labels.append(tl)
+        tgt_valid.append(tv)
+
+    def t(arrs):
+        return torch.from_numpy(np.stack(arrs)).to(device)
+
+    batch: Dict[str, Any] = {"hierarchy": stack_hierarchies(hs, device)}
+    batch["voxel_feats"] = t(vox_feats)
+    batch["point_valid"] = t(point_valid)
+    for k, vals in fields.items():
+        batch[k] = t(vals)
+    batch["img"] = t([s.img.astype(np.float32) for s in samples])
+    batch["label_2d"] = t([s.label_2d.astype(np.int32) for s in samples])
+    batch["binary_label_2d"] = t([s.binary_label_2d.astype(np.float32) for s in samples])
+    batch["caption_tokens"] = t([s.caption_tokens.astype(np.int32) for s in samples])
+    batch["target_labels"] = t(tgt_labels)
+    batch["target_valid"] = t(tgt_valid)
+    return batch

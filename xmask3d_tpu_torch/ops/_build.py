@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+
+Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
+plain C interface and loaded with `ctypes`. Wrappers pass raw device
+pointers (`tensor.data_ptr()`) and PyTorch's current stream as `c_void_p`;
+every C entry point returns `cudaGetLastError()` after its launch and
+`check` raises when that is not 0.
+
+Libraries go to `xmask3d_tpu_torch/_build/` (git-ignored) and are rebuilt
+when their source is newer. `build_all` starts one `nvcc` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+KERNELS = ("sparse_conv", "flash_attention", "deform_attn")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> function that sets argtypes/restype on the loaded library
+BINDERS: Dict[str, Callable[[ctypes.CDLL], None]] = {}
+_LOCK = threading.Lock()
+
+# Optional hook, None by default: when set, every kernel wrapper calls
+# RECORDER(name, args) with its checked arguments, all positional, before it
+# runs (kernel or plain version). `chip_smoke.py` records a view's calls so.
+RECORDER: Optional[Callable[[str, Tuple], None]] = None
+
+
+def record(name: str, *args) -> None:
+    if RECORDER is not None:
+        RECORDER(name, args)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _paths(name: str):
+    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    src, lib = _paths(name)
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def _command(name: str) -> List[str]:
+    src, lib = _paths(name)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    return [
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-o", str(tmp), str(src),
+    ]
+
+
+def build_all(names: Iterable[str] = KERNELS) -> str:
+    """Compile every stale source in parallel; returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        if _stale(name):
+            cmd = _command(name)
+            procs.append((name, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+    log = []
+    failed = []
+    for name, cmd, p in procs:
+        out, _ = p.communicate()
+        log.append(f"[{name}] {out}")
+        tmp = Path(cmd[cmd.index("-o") + 1])
+        if p.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _paths(name)[1])
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return "\n".join(log)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            if _stale(name):
+                build_all([name])
+            lib = ctypes.CDLL(str(_paths(name)[1]))
+            BINDERS[name](lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def require_contiguous(what: str, *tensors) -> None:
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous, got strides {t.stride()}")
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def stream(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

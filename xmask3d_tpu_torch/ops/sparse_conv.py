@@ -1,0 +1,326 @@
+"""Sparse 3D convolution: host kernel-map builder, plain ops and kernel K1.
+
+Counterpart of `xmask3d_tpu/ops/sparse_conv.py` (hierarchy, plain ops) and
+`xmask3d_tpu/ops/sparse_conv_pallas.py` (the kernel). A Minkowski conv is
+`out[b, v] = sum_k feats[b, kmap[b, k, v]] @ W[k]` over a dense int32 gather
+table `kmap` (-1 = no neighbour); transposed convs are parent gathers.
+
+Kernel offsets enumerate with the last axis fastest; odd kernels span
+-(k//2)..k//2 per axis and kernel 2 spans {0, 1}, in units of the level's
+tensor stride.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from xmask3d_tpu_torch.ops import _build
+
+# ---------------------------------------------------------------------------
+# Containers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SparseLevel:
+    """One stride level of the voxel hierarchy (static capacity)."""
+
+    coords: torch.Tensor  # (B, V, 3) int32, zero-padded
+    valid: torch.Tensor  # (B, V) bool
+    kmap3: torch.Tensor  # (B, 27, V) int32
+    num: torch.Tensor  # (B,) int32
+
+
+@dataclasses.dataclass
+class SparseHierarchy:
+    """Coordinate hierarchy + kernel maps; levels[0] is stride 1.
+
+    down[i]: (B, 8, V_{i+1}) gather map from level i into level i+1.
+    up_parent[i] / up_octant[i]: (B, V_i) parent row at level i+1 and the
+    octant weight index of the transposed conv. kmap5: (B, 125, V_0)."""
+
+    levels: Tuple[SparseLevel, ...]
+    down: Tuple[torch.Tensor, ...]
+    up_parent: Tuple[torch.Tensor, ...]
+    up_octant: Tuple[torch.Tensor, ...]
+    kmap5: torch.Tensor
+
+
+@dataclasses.dataclass
+class HostHierarchy:
+    """One sample's hierarchy as numpy arrays (before stacking)."""
+
+    coords: List[np.ndarray]
+    valid: List[np.ndarray]
+    kmap3: List[np.ndarray]
+    num: List[int]
+    down: List[np.ndarray]
+    up_parent: List[np.ndarray]
+    up_octant: List[np.ndarray]
+    kmap5: np.ndarray
+
+
+# ---------------------------------------------------------------------------
+# Host builder (numpy): exact coordinate hashing via int64 bit packing
+# ---------------------------------------------------------------------------
+
+_BITS = 20
+
+
+def _pack(coords: np.ndarray) -> np.ndarray:
+    """Pack int coords (N, 3) into unique int64 keys; out-of-range
+    components map to a sentinel that never aliases a real key."""
+    c = coords.astype(np.int64)
+    key = (c[:, 0] << (2 * _BITS)) | (c[:, 1] << _BITS) | c[:, 2]
+    bad = ((c < 0) | (c >= (1 << _BITS))).any(axis=1)
+    key[bad] = np.int64(1) << 62
+    return key
+
+
+def _offsets(kernel_size: int, stride_units: int) -> np.ndarray:
+    """Kernel offsets, last axis fastest. Odd k: centered; k == 2: {0, 1}."""
+    if kernel_size % 2 == 1:
+        r = np.arange(-(kernel_size // 2), kernel_size // 2 + 1)
+    elif kernel_size == 2:
+        r = np.arange(0, 2)
+    else:
+        raise ValueError(f"unsupported kernel_size {kernel_size}")
+    mesh = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
+    return mesh * stride_units
+
+
+def _lookup(sorted_keys: np.ndarray, order: np.ndarray, query: np.ndarray) -> np.ndarray:
+    """Map packed query keys -> original indices, -1 when absent."""
+    if len(sorted_keys) == 0:
+        return np.full(len(query), -1, np.int32)
+    pos = np.clip(np.searchsorted(sorted_keys, query), 0, len(sorted_keys) - 1)
+    hit = sorted_keys[pos] == query
+    return np.where(hit, order[pos], -1).astype(np.int32)
+
+
+def _build_kmap(out_coords, in_sorted_keys, in_order, offsets, capacity) -> np.ndarray:
+    kmap = np.full((len(offsets), capacity), -1, dtype=np.int32)
+    n_out = len(out_coords)
+    for i, off in enumerate(offsets):
+        if n_out:
+            kmap[i, :n_out] = _lookup(
+                in_sorted_keys, in_order, _pack(out_coords + off[None, :])
+            )
+    return kmap
+
+
+def build_hierarchy(
+    coords: np.ndarray,
+    capacities: Sequence[int],
+    num_levels: int = 5,
+    stem_kernel: int = 5,
+) -> HostHierarchy:
+    """Full stride hierarchy + kernel maps for one voxelized sample.
+
+    coords: (N, 3) non-negative, deduplicated voxel coords at stride 1.
+    capacities: per-level static voxel capacities; voxels beyond a level's
+    capacity are dropped."""
+    if len(capacities) != num_levels:
+        raise ValueError("one capacity per level")
+    coords = np.ascontiguousarray(coords[: capacities[0]], dtype=np.int32)
+    level_coords: List[np.ndarray] = [coords]
+    for lv in range(1, num_levels):
+        s = 2**lv
+        parent = (level_coords[-1] // s) * s
+        _, idx = np.unique(_pack(parent), return_index=True)
+        level_coords.append(parent[np.sort(idx)][: capacities[lv]])
+
+    sorted_keys, orders = [], []
+    for c in level_coords:
+        keys = _pack(c)
+        order = np.argsort(keys, kind="stable").astype(np.int32)
+        sorted_keys.append(keys[order])
+        orders.append(order)
+
+    def make_kmap(in_lv, out_coords, offsets, cap):
+        return _build_kmap(out_coords, sorted_keys[in_lv], orders[in_lv], offsets, cap)
+
+    out = HostHierarchy([], [], [], [], [], [], [], None)
+    for lv, c in enumerate(level_coords):
+        cap, n, stride = capacities[lv], len(c), 2**lv
+        out.kmap3.append(make_kmap(lv, c, _offsets(3, stride), cap))
+        coords_pad = np.zeros((cap, 3), dtype=np.int32)
+        coords_pad[:n] = c
+        valid = np.zeros((cap,), dtype=bool)
+        valid[:n] = True
+        out.coords.append(coords_pad)
+        out.valid.append(valid)
+        out.num.append(n)
+        if lv == 0 and stem_kernel:
+            out.kmap5 = make_kmap(0, c, _offsets(stem_kernel, 1), cap)
+        if lv + 1 < num_levels:
+            out.down.append(make_kmap(
+                lv, level_coords[lv + 1], _offsets(2, stride), capacities[lv + 1]
+            ))
+            s2 = 2 ** (lv + 1)
+            pidx = _lookup(sorted_keys[lv + 1], orders[lv + 1], _pack((c // s2) * s2))
+            oct3 = (c // stride) % 2
+            pp = np.full((cap,), -1, dtype=np.int32)
+            oo = np.zeros((cap,), dtype=np.int32)
+            pp[:n] = pidx
+            oo[:n] = (oct3[:, 0] * 4 + oct3[:, 1] * 2 + oct3[:, 2]).astype(np.int32)
+            out.up_parent.append(pp)
+            out.up_octant.append(oo)
+    return out
+
+
+def stack_hierarchies(hs: Sequence[HostHierarchy], device="cpu") -> SparseHierarchy:
+    """Stack per-sample host hierarchies into one batched SparseHierarchy."""
+
+    def st(arrs):
+        return torch.from_numpy(np.stack(arrs, axis=0)).to(device)
+
+    n_lv = len(hs[0].coords)
+    levels = tuple(
+        SparseLevel(
+            coords=st([h.coords[i] for h in hs]),
+            valid=st([h.valid[i] for h in hs]),
+            kmap3=st([h.kmap3[i] for h in hs]),
+            num=st([np.int32(h.num[i]) for h in hs]),
+        )
+        for i in range(n_lv)
+    )
+    return SparseHierarchy(
+        levels=levels,
+        down=tuple(st([h.down[i] for h in hs]) for i in range(n_lv - 1)),
+        up_parent=tuple(st([h.up_parent[i] for h in hs]) for i in range(n_lv - 1)),
+        up_octant=tuple(st([h.up_octant[i] for h in hs]) for i in range(n_lv - 1)),
+        kmap5=st([h.kmap5 for h in hs]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain ops
+# ---------------------------------------------------------------------------
+
+
+def gather_voxels(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """feats (B, V, C), idx (B, M) -> (B, M, C); idx < 0 gives zero rows."""
+    safe = idx.clamp(0, feats.shape[1] - 1).long()
+    g = torch.gather(feats, 1, safe[..., None].expand(-1, -1, feats.shape[2]))
+    return torch.where((idx >= 0)[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def sparse_conv_reference(
+    feats: torch.Tensor,  # (B, V_in, C_in)
+    weights: torch.Tensor,  # (K, C_in, C_out)
+    kmap: torch.Tensor,  # (B, K, V_out) int32
+    bias: Optional[torch.Tensor] = None,
+    out_valid: Optional[torch.Tensor] = None,  # (B, V_out) bool
+) -> torch.Tensor:
+    """Plain gather + matmul formulation of the sparse conv (the kernel's
+    contract): fp32 accumulation over taps, bias, zeroed invalid rows."""
+    w = weights.to(feats.dtype).float()
+    b, v_out = kmap.shape[0], kmap.shape[2]
+    out = torch.zeros((b, v_out, w.shape[2]), dtype=torch.float32, device=feats.device)
+    for k in range(w.shape[0]):
+        out += gather_voxels(feats, kmap[:, k]).float() @ w[k]
+    if bias is not None:
+        out = out + bias.float()
+    out = out.to(feats.dtype)
+    if out_valid is not None:
+        out = torch.where(out_valid[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+def sparse_conv(
+    feats: torch.Tensor,
+    weights: torch.Tensor,
+    kmap: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    out_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sparse conv: kernel K1 on CUDA tensors, the plain version on CPU ones
+    (same checks on both)."""
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sparse_conv: unsupported device {feats.device}")
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sparse_conv: unsupported dtype {feats.dtype}")
+    if feats.ndim != 3 or weights.ndim != 3 or kmap.ndim != 3:
+        raise ValueError("sparse_conv: feats (B,V,C), weights (K,Ci,Co), kmap (B,K,V)")
+    b, v_in, c_in = feats.shape
+    k, wc_in, c_out = weights.shape
+    if wc_in != c_in or kmap.shape[0] != b or kmap.shape[1] != k:
+        raise ValueError(
+            f"sparse_conv: shapes feats {tuple(feats.shape)} weights "
+            f"{tuple(weights.shape)} kmap {tuple(kmap.shape)} disagree"
+        )
+    if kmap.dtype != torch.int32:
+        raise TypeError("sparse_conv: kmap must be int32")
+    if weights.dtype != feats.dtype:
+        raise TypeError(f"sparse_conv: weights {weights.dtype} != feats {feats.dtype}")
+    v_out = kmap.shape[2]
+    if bias is not None and bias.shape != (c_out,):
+        raise ValueError(f"sparse_conv: bias must be ({c_out},)")
+    if out_valid is not None and (out_valid.shape != (b, v_out) or out_valid.dtype != torch.bool):
+        raise ValueError("sparse_conv: out_valid must be bool (B, V_out)")
+    _build.require_contiguous("sparse_conv", feats, weights, kmap, bias, out_valid)
+    bias_f = bias.float() if bias is not None else None
+    valid_u8 = out_valid.view(torch.uint8) if out_valid is not None else None
+    for t in (weights, kmap, bias_f, valid_u8):
+        if t is not None and t.device != feats.device:
+            raise ValueError("sparse_conv: all tensors must be on one device")
+    _build.record("sparse_conv", feats, weights, kmap, bias, out_valid)
+    if feats.device.type == "cpu":
+        return sparse_conv_reference(feats, weights, kmap, bias, out_valid)
+    out = torch.empty((b, v_out, c_out), dtype=feats.dtype, device=feats.device)
+    lib = _build.load("sparse_conv")
+    fn = lib.xm_sparse_conv_bf16 if feats.dtype == torch.bfloat16 else lib.xm_sparse_conv_f32
+    err = fn(
+        _build.ptr(feats), _build.ptr(weights), _build.ptr(kmap), _build.ptr(bias_f),
+        _build.ptr(valid_u8), _build.ptr(out),
+        b, v_in, c_in, c_out, k, v_out, _build.stream(feats.device),
+    )
+    _build.check(err, "sparse_conv")
+    sparse_conv.launches += 1
+    return out
+
+
+sparse_conv.launches = 0
+
+
+def _bind(lib):
+    import ctypes
+
+    for name in ("xm_sparse_conv_f32", "xm_sparse_conv_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
+_build.BINDERS["sparse_conv"] = _bind
+
+
+def sparse_conv_transpose(
+    feats: torch.Tensor,  # (B, V_coarse, C_in)
+    weights: torch.Tensor,  # (8, C_in, C_out)
+    parent: torch.Tensor,  # (B, V_fine) int32
+    octant: torch.Tensor,  # (B, V_fine) int32 in [0, 8)
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Transposed conv (kernel 2, stride 2): Y_k = feats @ W_k for the 8
+    octants, then each fine voxel picks Y[octant, parent]."""
+    y = torch.einsum("bvc,kco->bkvo", feats, weights.to(feats.dtype))
+    b, _, v_coarse, c_out = y.shape
+    flat = y.reshape(b, 8 * v_coarse, c_out)
+    idx = (octant.long() * v_coarse + parent.clamp(0, v_coarse - 1).long())
+    out = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c_out))
+    out = torch.where((parent >= 0)[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def global_max_pool(feats: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-scene max over valid voxels: (B, V, C), (B, V) -> (B, C)."""
+    neg = torch.finfo(feats.dtype).min
+    return torch.where(valid[..., None], feats, torch.full((), neg, dtype=feats.dtype, device=feats.device)).amax(dim=1)

@@ -19,8 +19,18 @@ Phases, each of which raises on failure:
      routing, vote) with every launch counter set to 0 first; checks the
      launch counts, the vote table and the outputs, and profiles one more
      view (device time by kernel, the device's idle share);
-  5. the tiny model on the card (fp32, kernels) against the same model on
-     the CPU (plain versions).
+  5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
+     stages on kernel K4 (`fused_gn`): the same seeded weights, two
+     synthetic scenes of 40000 points and 8 views each through the
+     whole-scene CLI's `run_eval_scenes` (per-view forward and routing,
+     multi-view votes, KD-tree fill, IoU meters). A warm-up run of the
+     scenes' fullest view records every kernel's calls, which are held
+     against their plain versions (bf16 and fp32; K4 also timed beside the
+     port's unfused stages); the `kernels` line takes K4's row from here;
+     then the counted scenes
+     check every kernel's launches, the votes, the fill and the summaries;
+  6. the tiny model on the card (fp32, kernels) against the same model on
+     the CPU (plain versions), unfused and with `fused_gn`.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it is the `kernels` JSON object, and the one before that the
@@ -48,6 +58,9 @@ PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off t
 # bf16 outputs round at 2^-8 relative, so two output ulps; fp32 differs only
 # by summation order
 TOL = {"bf16": 2.0 ** -7, "fp32": 1e-4}
+
+# the scene phase: synthetic scenes at the bench's image size and capacities
+SCENES, SCENE_POINTS, SCENE_VIEWS = 2, 40000, 8
 
 
 def log(obj) -> None:
@@ -85,8 +98,16 @@ def expected_launches(mc) -> dict:
                 blocks += 1
             idx += 1
     k2 = 2 * blocks * len(mc.ldm.steps) + 2
+    # K4 (with fused_gn): two GN -> SiLU -> conv stages per VAE resblock;
+    # the encoder runs all of its blocks and two mid blocks, the decoder its
+    # two mid blocks and the up blocks before its last tap
+    v = mc.ldm.vae
+    enc = len(v.ch_mult) * v.num_res_blocks + 2
+    dec = 2 + min(max(mc.ldm.decoder_block_indices), len(v.ch_mult) * (v.num_res_blocks + 1))
+    k4 = 2 * (enc + dec) if mc.fused_gn else 0
     # K3: one sampling call per deformable encoder layer
-    return {"sparse_conv": k1, "flash_attention": k2, "deform_attn": mc.pixel_enc_layers}
+    return {"sparse_conv": k1, "flash_attention": k2, "deform_attn": mc.pixel_enc_layers,
+            "gn_silu_conv": k4}
 
 
 # --------------------------------------------------------------------------
@@ -95,7 +116,7 @@ def expected_launches(mc) -> dict:
 
 
 def kernel_table():
-    from xmask3d_tpu_torch.ops import deform_attn, flash_attention, sparse_conv
+    from xmask3d_tpu_torch.ops import deform_attn, flash_attention, gn_conv, sparse_conv
 
     return {
         "sparse_conv": {
@@ -113,6 +134,11 @@ def kernel_table():
             "source": "xmask3d_tpu_torch/csrc/deform_attn.cu",
             "replaces": "xmask3d_tpu/ops/deform_attn.py:190",
         },
+        "gn_silu_conv": {
+            "fn": gn_conv.gn_silu_conv, "plain": gn_conv.gn_silu_conv_reference,
+            "source": "xmask3d_tpu_torch/csrc/gn_conv.cu",
+            "replaces": "xmask3d_tpu/ops/gn_conv.py:141",
+        },
     }
 
 
@@ -126,12 +152,14 @@ def _clone(x):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Keep a copy of the (positional) arguments of every kernel wrapper
-    call, through the wrappers' recorder hook, then unset the hook."""
+    """Keep a copy of the (positional) arguments of every call of the kernel
+    wrappers named in `calls`, through the wrappers' recorder hook, then
+    unset the hook."""
     from xmask3d_tpu_torch.ops import _build
 
     def rec(name, args):
-        calls[name].append(tuple(_clone(a) for a in args))
+        if name in calls:
+            calls[name].append(tuple(_clone(a) for a in args))
 
     _build.RECORDER = rec
     try:
@@ -189,6 +217,12 @@ def work(name, call, out):
         q, k, v = call
         b, h, tq, d = q.shape
         return nbytes(q, k, v, out), 4 * b * h * tq * k.shape[2] * d
+    if name == "gn_silu_conv":
+        # x and the output once, the norm and conv parameters; a multiply-add
+        # per tap, input and output channel of every output pixel
+        x, scale, bias, w, b = call[:5]
+        bsz, h, wd, c = x.shape
+        return nbytes(x, scale, bias, w, b, out), 2 * bsz * h * wd * w.shape[3] * 9 * c
     value, _, loc, aw = call
     b, lq, heads, n_lv, npts, _ = loc.shape
     # four taps, one multiply-add per channel each
@@ -252,13 +286,41 @@ def max_err(fn, plain, calls, tol):
     return err, worst, at, at_scale, outs
 
 
+def unfused_stages(calls):
+    """The port's unfused GroupNorm -> SiLU -> conv3x3 (the modules a VAE
+    resblock runs without fused_gn) on K4's recorded calls: [(stage, x)]."""
+    import torch.nn.functional as F
+
+    from xmask3d_tpu_torch.models.layers import Conv, GroupNorm
+
+    out = []
+    for x, scale, bias, w, b, groups, _ in calls:
+        c, cout = w.shape[2], w.shape[3]
+        norm = GroupNorm(c).to(x.device)
+        conv = Conv(c, cout, 3, padding=1).to(x.device)
+        if norm.groups != groups:
+            raise AssertionError(f"GroupNorm({c}) has {norm.groups} groups, the call {groups}")
+        norm.weight.data, norm.bias.data = scale, bias
+        conv.weight.data = w.permute(3, 2, 0, 1).contiguous()
+        conv.bias.data = b
+
+        def stage(x, norm=norm, conv=conv):
+            return conv(F.silu(norm(x)))
+
+        out.append((stage, x))
+    return out
+
+
 def check_kernels(table, calls) -> list:
+    """Each kernel with recorded calls against its plain version (bf16 as
+    recorded, then fp32), then timed: kernel, plain, and for K4 the port's
+    unfused stages; one row of the `kernels` line each."""
     import torch
     import torch.nn.functional as F
 
     rows = []
-    for name, k in table.items():
-        cs = calls[name]
+    for name, cs in calls.items():
+        k = table[name]
         if not cs:
             raise AssertionError(f"{name}: the main path made no call")
         errs = {}
@@ -276,11 +338,21 @@ def check_kernels(table, calls) -> list:
                 bound_ms, bound_by = bound(name, cs, outs)
             del outs
         reps = 5
-        t = [time_calls(k["plain"], cs, 2), time_calls(k["fn"], cs, reps),
-             time_calls(k["fn"], cs, reps), time_calls(k["plain"], cs, 2)]
-        library = None
+        timed = cs
+        if name == "gn_silu_conv":
+            # as the resblocks call K4: with its weight layout made once per conv
+            from xmask3d_tpu_torch.ops.gn_conv import kernel_params
+
+            timed = [c + (kernel_params(c[3], c[4], c[0].dtype),) for c in cs]
+        t = [time_calls(k["plain"], cs, 2), time_calls(k["fn"], timed, reps),
+             time_calls(k["fn"], timed, reps), time_calls(k["plain"], cs, 2)]
+        del timed
+        library = unfused = None
         if name == "flash_attention":
             library = time_calls(F.scaled_dot_product_attention, cs, reps)
+        if name == "gn_silu_conv":
+            with torch.no_grad():
+                unfused = time_calls(lambda stage, x: stage(x), unfused_stages(cs), reps)
         row = {
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": None, "max_abs_err": errs["bf16"],
@@ -288,7 +360,7 @@ def check_kernels(table, calls) -> list:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
         }
         log({"phase": "kernel_time", "kernel": name, "ms": row["ms"], "plain_ms": row["plain_ms"],
-             "bound_ms": bound_ms, "library_ms": library, "runs_ms": t})
+             "bound_ms": bound_ms, "library_ms": library, "unfused_ms": unfused, "runs_ms": t})
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
@@ -318,10 +390,10 @@ def check_outputs(outputs, caps, mc) -> None:
             raise AssertionError(f"{key}: non-finite values")
 
 
-def profile_view(view_body, batch, statics, votes, counter) -> dict:
-    """One more view under torch.profiler: device time per kernel name (the
-    largest twelve), the three port kernels' share, and how much of the
-    view's host wall time the device was busy (the union of kernel
+def profile_view(fn, *args) -> dict:
+    """One more view, fn(*args), under torch.profiler: device time per
+    kernel name (the largest twelve), the port kernels' share, and how much
+    of the view's host wall time the device was busy (the union of kernel
     intervals)."""
     import torch
     from torch.autograd import DeviceType
@@ -330,7 +402,7 @@ def profile_view(view_body, batch, statics, votes, counter) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        view_body(batch, statics, votes, counter)
+        fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -341,7 +413,8 @@ def profile_view(view_body, batch, statics, votes, counter) -> dict:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     ours = {k: sum(ms for n, ms in by_name.items() if k in n)
-            for k in ("sparse_conv_kernel", "flash_fwd_kernel", "deform_attn_kernel")}
+            for k in ("sparse_conv_kernel", "flash_fwd_kernel", "deform_attn_kernel",
+                      "gn_conv_bf16_kernel")}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
@@ -391,12 +464,14 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def reference_check(cfg_path) -> dict:
+def reference_check(cfg_path, fused_gn: bool = False) -> dict:
     """Tiny model, fp32: the card (kernels) against the CPU (plain versions)
     on the same weights and batch, stage by stage with the CPU's stage
     inputs, within 2e-3 of each output's largest value (the eval golden's
     tolerance);
-    then the whole eval forward, whose discrete outputs must agree on 99%."""
+    then the whole eval forward, whose discrete outputs must agree on 99%.
+    With `fused_gn` the VAE resblocks run K4 on the card, which must launch
+    for every stage of both runs."""
     import torch
 
     from xmask3d_tpu_torch.config import load_config
@@ -407,8 +482,9 @@ def reference_check(cfg_path) -> dict:
     cfg = load_config(cfg_path)
     cfg.update(mask_shape=[24, 32], compute_dtype="float32")
     caps = Capacities(max_points=512, max_voxels=256, max_targets=8)
-    cpu = build_model(cfg, tiny=True, seed=1, device="cpu")
+    cpu = build_model(cfg, tiny=True, seed=1, device="cpu", fused_gn=fused_gn)
     gpu = copy.deepcopy(cpu).to("cuda")
+    reset_launches()
     kw = dict(seed=3, num_points=400, image_size=(64, 64), mask_shape=(24, 32),
               context_length=16, vocab_size=512)
     b_cpu = synthetic_batch(1, caps, device="cpu", **kw)
@@ -418,7 +494,7 @@ def reference_check(cfg_path) -> dict:
     with torch.no_grad():
         ref = trunk_stages(cpu, b_cpu, s_cpu)
         got = trunk_stages(gpu, b_gpu, s_gpu, given=_to(ref, "cuda"))
-    report, bad = {"phase": "reference_tiny_fp32"}, []
+    report, bad = {"phase": "reference_tiny_fp32" + ("_fused_gn" if fused_gn else "")}, []
     for (key, a), (_, b) in zip(_leaves(ref), _leaves(got)):
         err = float((a.float() - b.float().cpu()).abs().max())
         tol = 2e-3 * float(a.float().abs().max()) + 1e-6
@@ -432,10 +508,109 @@ def reference_check(cfg_path) -> dict:
         report[f"{key}_mismatch"] = frac
         if frac > 0.01:
             bad.append(f"{key} disagrees on {frac:.2%}")
+    report["launches"] = launches()
+    k4 = 2 * expected_launches(gpu.cfg)["gn_silu_conv"]
+    if report["launches"]["gn_silu_conv"] != k4:
+        bad.append(f"K4 launched {report['launches']['gn_silu_conv']} times, expected {k4}")
     if bad:
         log(report)
         raise AssertionError("tiny reference: " + "; ".join(bad))
     return report
+
+
+def scene_phase(cfg, caps, table) -> dict:
+    """Whole scenes at full width with fused_gn: the model built again from
+    the same seed, two synthetic scenes through `run_eval_scenes`. A warm-up
+    run of the fullest view records every kernel's calls, which are held
+    against their plain versions (K1-K3 again, on this path's inputs); the
+    counted run must launch every
+    kernel its per-view count times over all views, vote once per kept view
+    point, leave no scene point without a prediction and give finite
+    summaries. Returns K4's row of the `kernels` line."""
+    import math
+
+    import torch
+
+    from xmask3d_tpu_torch.data.batching import collate_views
+    from xmask3d_tpu_torch.data.synthetic import synthetic_scene
+    from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step, run_eval_scenes
+
+    t0 = time.time()
+    model = build_model(cfg, seed=0, fused_gn=True)
+    mc = model.cfg
+    statics = build_statics(model, cfg)
+    infer_step, route_2d = make_infer_step(model, cfg)
+    scenes = [synthetic_scene(caps, seed=200 + i, num_points=SCENE_POINTS, num_views=SCENE_VIEWS,
+                              num_classes=cfg.test_classes, image_size=(512, 512),
+                              mask_shape=tuple(cfg.mask_shape), context_length=77,
+                              vocab_size=49408)
+              for i in range(SCENES)]
+    n_views = sum(len(sc["views"]) for sc in scenes)
+    torch.cuda.synchronize()
+    log({"phase": "scene_setup", "seconds": time.time() - t0, "scenes": SCENES,
+         "views": n_views, "points": [len(sc["coords"]) for sc in scenes],
+         "visible": [int(v["visible"].sum()) for sc in scenes for v in sc["views"]]})
+    expected = expected_launches(mc)
+
+    # warm-up view: record every kernel's calls on this path's fullest view
+    # (more live rows than the main path's views), check and time them
+    calls = {name: [] for name, n in expected.items() if n}
+    fullest = max((v for sc in scenes for v in sc["views"]), key=lambda v: int(v["visible"].sum()))
+    batch = collate_views([fullest["sample"]], caps)
+    reset_launches()
+    with recording(calls):
+        t0 = time.time()
+        infer_step(batch, statics)
+        torch.cuda.synchronize()
+    log({"phase": "scene_warmup_view", "ms": (time.time() - t0) * 1e3, "launches": launches(),
+         "live_voxels": int(batch["hierarchy"].levels[0].num[0]),
+         "live_points": int(batch["point_valid"].sum())})
+    for name, n in expected.items():
+        if len(calls.get(name, ())) != n or launches()[name] != n:
+            raise AssertionError(f"{name}: {len(calls.get(name, ()))} calls, {launches()[name]} "
+                                 f"launches in the scene warm-up view, expected {n}")
+    rows = {row["name"]: row for row in check_kernels(table, calls)}
+    log({"phase": "scene_kernel_rows", "rows": list(rows.values())})
+    row = rows["gn_silu_conv"]
+    del calls
+    torch.cuda.empty_cache()
+    infer_step(batch, statics)  # refill the allocator's cache, uncounted
+    torch.cuda.synchronize()
+
+    # the counted scenes
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
+                              infer_step=infer_step, route_2d=route_2d, record=record)
+    seconds = time.time() - t0
+    counts = launches()
+    log({"phase": "scenes", "scenes": len(scenes), "views": n_views, "seconds": seconds,
+         "seconds_per_scene": seconds / len(scenes), "host_ms_per_view": seconds * 1e3 / n_views,
+         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
+         "expected_per_view": expected, "summary": summary,
+         "kept": [r["kept"] for r in record], "counter": [r["counter"] for r in record]})
+    for name, n in expected.items():
+        if counts[name] != n * n_views:
+            raise AssertionError(f"{name}: {counts[name]} launches over the scenes, "
+                                 f"expected {n * n_views}")
+    for rec, sc in zip(record, scenes):
+        if rec["views"] != len(sc["views"]) or rec["kept"] <= 0:
+            raise AssertionError(f"{rec['name']}: {rec['views']} views, {rec['kept']} kept rows")
+        if any(c != rec["kept"] for c in rec["counter"].values()):
+            raise AssertionError(f"{rec['name']}: votes {rec['counter']} != {rec['kept']} kept")
+        for stream, pred in rec["pred"].items():
+            if pred.shape != (len(sc["coords"]),) or pred.min() < 0 \
+                    or pred.max() >= cfg.test_classes:
+                raise AssertionError(f"{rec['name']} {stream}: predictions do not cover the scene")
+    for key in ("hIoU", "mIoU", "hIoU_2d", "mIoU_2d", "hIoU_3d", "mIoU_3d"):
+        if not math.isfinite(summary[key]):
+            raise AssertionError(f"{key} = {summary[key]}")
+    log(profile_view(infer_step, batch, statics))
+    row["launches"] = counts["gn_silu_conv"]
+    return row
 
 
 def main() -> int:
@@ -492,7 +667,7 @@ def main() -> int:
     expected = expected_launches(mc)
 
     # warm-up view, recording every kernel call of the path
-    calls = {name: [] for name in table}
+    calls = {name: [] for name, n in expected.items() if n}
     reset_launches()
     with recording(calls):
         votes, counter = fresh_vote_state(caps.max_points, mc.num_test_classes)
@@ -502,8 +677,8 @@ def main() -> int:
     log({"phase": "warmup_view", "ms": (time.time() - t0) * 1e3,
          "recorded": {n: len(c) for n, c in calls.items()}, "launches": launches()})
     for name, n in expected.items():
-        if len(calls[name]) != n or launches()[name] != n:
-            raise AssertionError(f"{name}: {len(calls[name])} calls, {launches()[name]} "
+        if len(calls.get(name, ())) != n or launches()[name] != n:
+            raise AssertionError(f"{name}: {len(calls.get(name, ()))} calls, {launches()[name]} "
                                  f"launches in the warm-up view, expected {n}")
 
     rows = check_kernels(table, calls)
@@ -550,10 +725,14 @@ def main() -> int:
     log({"phase": "outputs", "ok": True,
          "pred_labels": outputs["pred_labels"][0, :10].tolist(),
          "final_masks": int(outputs["final_mask_valid"].sum())})
-    del model, outputs, views
+    del model, outputs, views, statics, view_body, votes, counter
+    torch.cuda.empty_cache()
+
+    rows.append(scene_phase(cfg, caps, table))
     torch.cuda.empty_cache()
 
     log(reference_check(CONFIG))
+    log(reference_check(CONFIG, fused_gn=True))
 
     print(card, flush=True)
     log({"kernels": rows})

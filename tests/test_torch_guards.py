@@ -113,6 +113,37 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert int(counter.sum()) == int(batch["point_valid"].sum())
 
 
+def test_scene_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The whole-scene CLI (`main`, `run_scene`, `run_eval_scenes`) and the
+    fused model build follow the device rule; on the CPU they run."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_scene
+    from xmask3d_tpu_torch.engine import builder, infer_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(ROOT, "configs/scannet/xmask3d_scannet_B15N4.yaml")
+    cfg = load_config(config)
+    caps = Capacities(max_points=64, max_voxels=32, max_targets=4)
+    scene = synthetic_scene(caps, num_points=80, num_views=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer_cli.main(["--config", config, "--synthetic", "--tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        builder.build_model(cfg, tiny=True, fused_gn=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer_cli.run_scene(scene, None, None, {}, caps, 19)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer_cli.run_eval_scenes([scene], 1, cfg=cfg, caps=caps, statics={}, infer_step=None,
+                                  route_2d=None)
+    cfg.update(arch_3d="MinkUNet14A", arch_binary_head="MinkUNet14A", mask_shape=[24, 32],
+               compute_dtype="float32")
+    model = builder.build_model(cfg, tiny=True, device="cpu", fused_gn=True)
+    step, route = infer_cli.make_infer_step(model, cfg)
+    statics = builder.build_statics(model, cfg, device="cpu")
+    pred = infer_cli.run_scene(scene, step, route, statics, caps, 19, device="cpu")
+    assert set(pred) == {"pred", "pred_2d", "pred_3d"}
+    assert all(len(p) == len(scene["coords"]) for p in pred.values())
+
+
 def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

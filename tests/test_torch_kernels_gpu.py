@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from xmask3d_tpu_torch.models.layers import gn_groups
 from xmask3d_tpu_torch.ops import deform_attn as tda
 from xmask3d_tpu_torch.ops import flash_attention as tfa
+from xmask3d_tpu_torch.ops import gn_conv as tgc
 from xmask3d_tpu_torch.ops import sparse_conv as tsc
 
 pytestmark = pytest.mark.gpu
@@ -26,6 +28,9 @@ DTYPES = ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7))
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    # the plain versions' fp32 convolutions in full fp32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -82,6 +87,54 @@ def test_deform_attn(cuda):
         _close(tda.ms_deform_attn, tda.ms_deform_attn_reference, (value.to(dt), shapes, loc, aw), {}, tol)
 
 
+@pytest.mark.parametrize("c,cout,h,w", [(16, 16, 13, 21), (48, 48, 9, 35), (128, 128, 24, 40),
+                                       (256, 512, 17, 19), (32, 7, 8, 16)])
+def test_gn_silu_conv(cuda, c, cout, h, w):
+    """B = 2 (per-batch statistics), maps that are not a multiple of the
+    8 x 16 tile, channel counts off the 32-channel chunk and the 128-channel
+    output tile; the border rows and columns held as strictly as the rest."""
+    rng = np.random.RandomState(c + cout + h)
+    x = torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32) * 2 + 0.5).to(cuda)
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.1).to(cuda)
+    wt = torch.from_numpy(rng.randn(3, 3, c, cout).astype(np.float32) * 0.05).to(cuda)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.1).to(cuda)
+    groups = gn_groups(c)
+    for dt, tol in DTYPES:
+        _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference,
+               (x.to(dt), scale, bias, wt, b, groups), {}, tol)
+
+
+def test_fused_resnet_block_keeps_k4_params_until_the_weights_change(cuda):
+    """A fused VAE resblock on the card makes K4's weight layout once per
+    conv and makes it again when a weight changes; each time it matches the
+    unfused block on the same weights."""
+    from xmask3d_tpu_torch.models.vae import ResnetBlock
+
+    torch.manual_seed(0)
+    fused = ResnetBlock(32, 64, fused_gn=True).to(cuda)
+    plain = ResnetBlock(32, 64).to(cuda)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 12, 20, 32, device=cuda)
+
+    def run():
+        n = tgc.gn_silu_conv.launches
+        with torch.no_grad():
+            got, want = fused(x), plain(x)
+        assert tgc.gn_silu_conv.launches == n + 2
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+        return fused._k4_params["conv1"][1][0]
+
+    first = run()
+    assert set(fused._k4_params) == {"conv1", "conv2"}
+    assert run() is first
+    with torch.no_grad():
+        for m in (fused, plain):
+            m.conv1.weight.mul_(-0.5)
+    assert run() is not first
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 8, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -96,3 +149,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     loc = torch.zeros(1, 3, 2, 1, 1, 2, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         tda.ms_deform_attn(value, [(2, 2)], loc, torch.zeros(1, 3, 2, 1, 1, device=cuda))
+    x = torch.zeros(1, 8, 8, 32, device=cuda)
+    w, v = torch.zeros(3, 3, 32, 16, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(TypeError):
+        tgc.gn_silu_conv(x.half(), v, v, w, v[:16])
+    with pytest.raises(ValueError, match="contiguous"):
+        tgc.gn_silu_conv(x.transpose(1, 2), v, v, w, v[:16])
+    with pytest.raises(ValueError, match="one device"):
+        tgc.gn_silu_conv(x, v.cpu(), v, w, v[:16])
+    wk, bf = tgc.kernel_params(w, v[:16], torch.float32)
+    with pytest.raises(ValueError, match="kernel_params"):
+        tgc.gn_silu_conv(x, v, v, w, v[:16], params=(wk.bfloat16(), bf))

@@ -4,12 +4,13 @@ One tiny configuration (MinkUNet14A for both 3D nets, ViT-tiny, LDM_TINY,
 mask shape (24, 32), capacities 512/256/8, float32 on both sides) with
 every JAX leaf drawn from a numpy seed (non-zero conditioning gates and
 deformable offsets included) and carried into the port by
-`load_jax_variables`. The image is 128x128 rather than 64x64: at 64 the
-UNet's innermost map is 1x1 and its GroupNorms see two values per group,
-where flax's one-pass variance and torch's two-pass one part by ~1e-3. The
-JAX side runs once per file: one jitted eval forward that also records each
-step's output. Each step of the port is then fed the JAX inputs of that
-step, so a divergence is pinned to its step.
+`load_jax_variables`. The image is 128x128; a second case runs the stages at
+64x64, where the tiny UNet's innermost map is 1x1 and its GroupNorms see two
+values per group (the port computes GroupNorm as flax does, one-pass
+variance included, so the two agree there too). The JAX side runs once per
+image size: one jitted eval forward that also records each step's output.
+Each step of the port is then fed the JAX inputs of that step, so a
+divergence is pinned to its step.
 
 Tolerances: 1e-4 of each output's largest value per step (fp32 in both
 frameworks, op order differs); the eval golden's rtol = atol = 2e-3 for the
@@ -46,6 +47,16 @@ STEP_TOL = 1e-4
 E2E_TOL = 2e-3
 NEAR = 1e-4
 IMAGE = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs test files in parallel worker processes; torch's
+    default of one OpenMP thread per core oversubscribes the CPU there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tiny_cfg(loader):
@@ -128,12 +139,11 @@ def _tt(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.fixture(scope="module")
-def both():
+def _both(image):
     jcfg = _tiny_cfg(jax_load_config)
     caps = JaxCapacities(max_points=512, max_voxels=256, max_targets=8)
     batch_np = jax_synthetic_batch(
-        1, caps, seed=0, num_points=400, image_size=(IMAGE, IMAGE), mask_shape=(24, 32),
+        1, caps, seed=0, num_points=400, image_size=(image, image), mask_shape=(24, 32),
         context_length=16, vocab_size=512,
     )
     batch = jax.tree_util.tree_map(jnp.asarray, batch_np)
@@ -184,6 +194,16 @@ def both():
         "batch_np": batch_np, "statics": {k: _tt(v) for k, v in statics.items()},
         "variables": variables, "out": out, "inter": inter, "routed": routed,
     }
+
+
+@pytest.fixture(scope="module")
+def both():
+    return _both(IMAGE)
+
+
+@pytest.fixture(scope="module")
+def both64():
+    return _both(64)
 
 
 def test_weights_carried_leaf_by_leaf(both):
@@ -325,6 +345,41 @@ def test_eval_forward_route_and_vote(both):
     assert (votes.numpy() != want_votes).any(axis=1).sum() == int(diff_pred.sum())
     np.testing.assert_array_equal(counter.numpy(), pv.astype(np.int32))
     print(f"near-threshold cases: final_mask_3d {n_near}, votes {int(diff_pred.sum())}")
+
+
+def test_stages_at_64_image(both64):
+    """The stage comparison at a 64x64 image: the LDM taps (two values per
+    GroupNorm group at the UNet's 1x1 level), the s2..s5 maps, the pixel
+    and mask decoders and MaskCLIP, each fed the JAX inputs of its step;
+    then the eval forward's logits within the golden's tolerance."""
+    b, port, inter = both64["batch"], both64["port"], both64["inter"]
+    img01 = b["img"] / 255.0
+    imp = _tt(inter["run_3d"][0]["imp_condition"])
+    uncond = both64["statics"]["uncond_tokens"]
+    bb = inter["backbone"]
+    with torch.no_grad():
+        taps = port.backbone.feature_extractor(img01, imp, uncond)
+        feats = port.backbone(img01, imp, uncond)
+        mf_want, ms_want = inter["pixel_decoder"]["__call__"][0]
+        mf, ms = port.pixel_decoder({k: _tt(v) for k, v in bb["__call__"][0].items()})
+        dec = port.mask_decoder([_tt(m) for m in ms_want], _tt(mf_want))
+        masks = _tt(inter["mask_decoder"]["__call__"][0]["pred_masks"])
+        clip = port._clip_mask_embed(img01, masks)
+    assert feats["s5"].shape[1:3] == (2, 2)
+    for i, (g, w) in enumerate(zip(taps, bb["feature_extractor"]["__call__"][0])):
+        assert_close(g, w, STEP_TOL, f"tap {i}")
+    for name, w in bb["__call__"][0].items():
+        assert_close(feats[name], w, STEP_TOL, name)
+    assert_close(mf, mf_want, STEP_TOL, "mask_features")
+    for i, (g, w) in enumerate(zip(ms, ms_want)):
+        assert_close(g, w, STEP_TOL, f"level {i}")
+    want_dec = inter["mask_decoder"]["__call__"][0]
+    for key in ("pred_masks", "mask_embed"):
+        assert_close(dec[key], want_dec[key], STEP_TOL, key)
+    assert_close(clip, inter["_clip_mask_embed"][0], STEP_TOL, "mask_embed_clip")
+    got = port.eval_forward(b, both64["statics"])
+    for key in ("pred_logits", "fused_pred_feature", "mask_embed_clip", "binary_sig"):
+        assert_golden(got[key], both64["out"][key], key)
 
 
 def test_device_vote_add_drops_invalid_rows():

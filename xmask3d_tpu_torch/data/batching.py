@@ -63,9 +63,7 @@ def pack_targets(label_2d: np.ndarray, max_targets: int):
     return labels, labels >= 0
 
 
-def collate_views(
-    samples: List[ViewSample], caps: Capacities, device=None
-) -> Dict[str, Any]:
+def collate_views(samples: List[ViewSample], caps: Capacities, device=None) -> Dict[str, Any]:
     """Pad and stack view samples into a fixed-shape batch of tensors on
     `device` (the GPU unless "cpu" is asked for)."""
     device = resolve_device(device)

@@ -1,7 +1,8 @@
-"""Synthetic ScanNet-like views: own copy of `xmask3d_tpu/data/synthetic.py`
-(`synthetic_batch`). Room-like surface point clouds, images and 2D labels
-drawn from a numpy seed and run through the host pipeline, so the same seed
-gives the same batch as the JAX package."""
+"""Synthetic ScanNet-like views and scenes: own copy of
+`xmask3d_tpu/data/synthetic.py` (`synthetic_batch`, `synthetic_scene`).
+Room-like surface point clouds, images and 2D labels drawn from a numpy seed
+and run through the host pipeline, so the same seed gives the same batch as
+the JAX package."""
 
 from __future__ import annotations
 
@@ -100,6 +101,70 @@ def synthetic_view_sample(
         binary_label_2d=binary_label_2d,
         caption_tokens=tok(["a room with chairs and a table"])[0],
     )
+
+
+def synthetic_scene(
+    caps: Capacities,
+    seed: int = 0,
+    num_points: int = 8000,
+    num_views: int = 4,
+    num_classes: int = 15,
+    image_size=(64, 64),
+    mask_shape=(24, 32),
+    context_length: int = 16,
+    vocab_size: int = 512,
+) -> Dict:
+    """A synthetic scene with consistent multi-view structure: one point
+    cloud and views whose visible subsets are contiguous bands of it, the
+    layout of `ScanNetSceneViews.scene` (numpy; same arrays as the JAX
+    package's `synthetic_scene` from the same seed)."""
+    rng = np.random.RandomState(seed)
+    pts = _room_surface_points(rng, num_points)
+    colors = rng.rand(num_points, 3) * 255
+    labels = rng.randint(0, num_classes, size=num_points).astype(np.int64)
+    tok = build_tokenizer(vocab_size=vocab_size, context_length=context_length)
+    views = []
+    for _ in range(num_views):
+        d = rng.randn(3)
+        d /= np.linalg.norm(d)
+        proj = pts @ d
+        lo = np.quantile(proj, rng.uniform(0.0, 0.35))
+        hi = np.quantile(proj, rng.uniform(0.6, 1.0))
+        visible = (proj >= lo) & (proj <= hi)
+        n_vis = int(visible.sum())
+        if n_vis < 50:
+            visible = np.ones(num_points, bool)
+            n_vis = num_points
+        idx = np.where(visible)[0]
+        coords, feats, _, inds_rec = Voxelizer(voxel_size=0.05).voxelize(
+            pts[idx], colors[idx], labels[idx]
+        )
+        coords = coords[: caps.max_voxels]
+        h, w = image_size
+        img = (rng.rand(h, w, 3) * 255).astype(np.float32)
+        label_2d = np.full((h, w), num_classes, np.int64)
+        for _ in range(rng.randint(2, 5)):
+            cls = rng.randint(0, num_classes)
+            y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            label_2d[y0 : y0 + h // 3, x0 : x0 + w // 3] = cls
+        binary_2d = (label_2d[:: max(1, h // 128), :: max(1, w // 128)][:128, :128]
+                     < num_classes).astype(np.float32)
+        sample = ViewSample(
+            voxel_coords=coords,
+            voxel_feats=(feats[: caps.max_voxels] / 127.5 - 1.0).astype(np.float32),
+            inds_reconstruct=np.clip(inds_rec, 0, caps.max_voxels - 1),
+            labels_3d=labels[idx],
+            binary_label_3d=rng.randint(0, 2, size=n_vis).astype(np.float32),
+            x_label=rng.randint(0, mask_shape[0], size=n_vis),
+            y_label=rng.randint(0, mask_shape[1], size=n_vis),
+            img=img,
+            label_2d=label_2d,
+            binary_label_2d=binary_2d,
+            caption_tokens=tok(["a synthetic room"])[0],
+        )
+        views.append({"sample": sample, "visible": visible})
+    return {"name": f"synthetic_{seed}", "coords": pts, "colors": colors, "labels": labels,
+            "views": views}
 
 
 def synthetic_batch(

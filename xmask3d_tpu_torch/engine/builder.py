@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from xmask3d_tpu_torch.config import Config
+from xmask3d_tpu_torch.data.batching import Capacities
 from xmask3d_tpu_torch.data.tokenizer import build_tokenizer
 from xmask3d_tpu_torch.device import resolve_device
 from xmask3d_tpu_torch.models.clip import CLIP_CONFIGS
@@ -24,7 +25,8 @@ from xmask3d_tpu_torch.models.ldm_extractor import LDM_SD_V1, LDM_TINY
 from xmask3d_tpu_torch.models.xmask3d import XMask3D, XMask3DConfig
 
 
-def model_config_from_cfg(cfg: Config, tiny: bool = False) -> XMask3DConfig:
+def model_config_from_cfg(cfg: Config, tiny: bool = False, fused_gn: bool = False
+                          ) -> XMask3DConfig:
     dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else torch.float32
     return XMask3DConfig(
         num_classes=cfg.classes,
@@ -42,6 +44,25 @@ def model_config_from_cfg(cfg: Config, tiny: bool = False) -> XMask3DConfig:
         dec_layers=cfg.get("dec_layers", 9),
         pixel_enc_layers=cfg.get("pixel_enc_layers", 6),
         dtype=dtype,
+        fused_gn=fused_gn,
+    )
+
+
+def data_tokenizer(cfg: Config, tiny: bool = False):
+    """Caption tokenizer matching the model's text towers: vocab size and
+    context length of the CLIP config the model uses (the tiny towers run
+    context 16 / vocab 512)."""
+    name = "ViT-tiny" if tiny else cfg.get("clip_name", "ViT-L-14")
+    text_cfg = CLIP_CONFIGS[name][0]
+    return build_tokenizer(cfg.get("clip_bpe_vocab", ""), vocab_size=text_cfg.vocab_size,
+                           context_length=text_cfg.context_length)
+
+
+def capacities_from_cfg(cfg: Config) -> Capacities:
+    return Capacities(
+        max_points=cfg.get("max_points", 65536),
+        max_voxels=cfg.get("max_voxels", 49152),
+        max_targets=cfg.get("max_targets", 24),
     )
 
 
@@ -92,13 +113,15 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 buf.fill_(1.0)
 
 
-def build_model(cfg: Config, tiny: bool = False, seed: int = 0, device=None) -> XMask3D:
+def build_model(cfg: Config, tiny: bool = False, seed: int = 0, device=None,
+                fused_gn: bool = False) -> XMask3D:
     """The eval-mode model on `device` (the GPU unless "cpu" is asked for),
     weights drawn from `seed`. Parameters are stored in the config's
     `compute_dtype`; the BatchNorm running statistics stay fp32, as in the
-    JAX package's serving cast."""
+    JAX package's serving cast. `fused_gn` runs the VAE resblocks'
+    GroupNorm -> SiLU -> conv3x3 stages on kernel K4 (same parameters)."""
     dev = resolve_device(device)
-    mc = model_config_from_cfg(cfg, tiny=tiny)
+    mc = model_config_from_cfg(cfg, tiny=tiny, fused_gn=fused_gn)
     with torch.device(dev):
         model = XMask3D(mc)
     init_weights(model, seed)

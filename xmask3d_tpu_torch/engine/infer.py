@@ -1,17 +1,23 @@
-"""Per-view ensemble + routing and the on-device vote update.
+"""Whole-scene inference: per-view ensemble + routing, multi-view voting,
+the nearest-neighbour fills and the IoU meters.
 
-Counterpart of `ensemble_and_route` and `device_vote_add` in
-`xmask3d_tpu/engine/infer.py`: the geometric-mean ensemble of fused-feature
-logits with the MaskCLIP open logits of the last final 3D mask covering
-each point, base/novel binary routing, and a scatter-add of each point's
-prediction into the scene's vote table.
+Counterpart of `xmask3d_tpu/engine/infer.py`. On the device: the
+geometric-mean ensemble of fused-feature logits with the MaskCLIP open
+logits of the last final 3D mask covering each point, base/novel binary
+routing, the 2D branch's fill-and-route, and the vote scatter-add of the
+serving view body. On the host (numpy, scipy's cKDTree): the per-view
+nearest-covered match, the scene voter with its KD-tree fill of never-seen
+points, and the histogram IoU meters.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
+
+from xmask3d_tpu_torch.utils.metrics import hiou
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +84,115 @@ def ensemble_and_route(
         "text": text,
         "logit_scale": logit_scale,
     }
+
+
+def fill_and_route_2d(
+    feat_2d: torch.Tensor,  # (B, P, C) normalised painted 2D features
+    match_idx: torch.Tensor,  # (B, P) nearest covered point of each point
+    binary_pred: torch.Tensor,  # (B, P) float {0, 1}
+    text: torch.Tensor,  # (L, C) normalised text bank
+    logit_scale: torch.Tensor,
+    base_category: Sequence[int],
+    novel_category: Sequence[int],
+) -> torch.Tensor:
+    """The 2D branch's per-point class (B, P) int32: each point takes the
+    features of its match (itself where covered, the nearest covered point
+    of the view where not), then the base/novel routing of its logits."""
+    idx = match_idx.long()[..., None].expand(-1, -1, feat_2d.shape[-1])
+    filled = torch.gather(feat_2d, 1, idx)
+    logits = logit_scale * torch.einsum("bpc,lc->bpl", filled.float(), text)
+    dev = text.device
+    cols = torch.arange(text.shape[0], device=dev)
+    base_cols = torch.isin(cols, torch.tensor(list(base_category), device=dev))
+    novel_cols = torch.isin(cols, torch.tensor(list(novel_category), device=dev))
+    neg = torch.tensor(-1e10, dtype=torch.float32, device=dev)
+    bp = binary_pred[..., None]
+    routed = bp * torch.where(novel_cols, neg, logits) + (1 - bp) * torch.where(base_cols, neg, logits)
+    return routed.argmax(dim=-1).int()
+
+
+def nearest_covered_match(coords: np.ndarray, covered: np.ndarray,
+                          valid: np.ndarray) -> np.ndarray:
+    """Host side of the per-view fill: for every valid uncovered point, the
+    index of the nearest valid covered point (identity elsewhere)."""
+    from scipy.spatial import cKDTree
+
+    match = np.arange(len(covered), dtype=np.int32)
+    cov = covered & valid
+    unc = (~covered) & valid
+    if not cov.any() or not unc.any():
+        return match
+    cov_idx = np.where(cov)[0]
+    _, nn = cKDTree(coords[cov_idx]).query(coords[np.where(unc)[0]], k=1)
+    match[unc] = cov_idx[nn].astype(np.int32)
+    return match
+
+
+def kdtree_fill(coords: np.ndarray, values: np.ndarray, known: np.ndarray) -> np.ndarray:
+    """Fill unknown rows with the nearest known row's value."""
+    from scipy.spatial import cKDTree
+
+    if known.all() or not known.any():
+        return values
+    _, nn = cKDTree(coords[known]).query(coords[~known], k=1)
+    out = values.copy()
+    out[~known] = values[np.where(known)[0][nn]]
+    return out
+
+
+def view_scene_ids(visible, pv, scene_pv=None):
+    """(rows, sids, keep) over min(#visible, P_cap) entries: view row r holds
+    the r-th visible scene point; `keep` is the batch's point_valid at those
+    rows (never a prefix count: voxel-overflow holes are interior) and, with
+    `scene_pv`, the validity of the target scene point."""
+    sids = np.where(visible)[0][: pv.shape[0]]
+    rows = np.arange(len(sids))
+    keep = np.asarray(pv[: len(sids)], bool).copy()
+    if scene_pv is not None:
+        keep &= sids < len(scene_pv)
+        keep &= scene_pv[np.clip(sids, 0, len(scene_pv) - 1)]
+    return rows, sids, keep
+
+
+class SceneVoter:
+    """Multi-view per-point class votes of one scene (host)."""
+
+    def __init__(self, num_points: int, num_classes: int):
+        self.votes = np.zeros((num_points, num_classes), np.int32)
+        self.counter = np.zeros((num_points,), np.int32)
+
+    def add_view(self, point_ids: np.ndarray, preds: np.ndarray):
+        self.votes[point_ids, preds] += 1
+        self.counter[point_ids] += 1
+
+    def finalize(self, coords: np.ndarray) -> np.ndarray:
+        """Each point's most voted class; never-seen points take their
+        nearest seen point's."""
+        return kdtree_fill(coords, self.votes.argmax(1), self.counter > 0)
+
+
+def evaluate_scene_predictions(pred: np.ndarray, gt: np.ndarray, num_classes: int,
+                               base_category: Sequence[int], novel_category: Sequence[int],
+                               ignore: Sequence[int] = (255,)) -> Dict[str, np.ndarray]:
+    """Histogram IoU accumulators of one scene (host)."""
+    keep = ~np.isin(gt, list(ignore))
+    p, g = pred[keep], gt[keep]
+    inter, union, target = (np.zeros(num_classes) for _ in range(3))
+    for c in range(num_classes):
+        pi, gi = p == c, g == c
+        inter[c] = (pi & gi).sum()
+        union[c] = (pi | gi).sum()
+        target[c] = gi.sum()
+    return {"inter": inter, "union": union, "target": target}
+
+
+def summarize_iou(acc: Dict[str, np.ndarray], base_category: Sequence[int],
+                  novel_category: Sequence[int]) -> Dict[str, float]:
+    iou = acc["inter"] / np.maximum(acc["union"], 1e-10)
+    miou_base = float(iou[list(base_category)].mean())
+    miou_novel = float(iou[list(novel_category)].mean())
+    return {"mIoU_base": miou_base, "mIoU_novel": miou_novel,
+            "hIoU": hiou(miou_base, miou_novel), "mIoU": float(iou.mean())}
 
 
 def device_vote_add(votes: torch.Tensor, counter: torch.Tensor, point_ids: torch.Tensor,

@@ -47,11 +47,12 @@ class FeatureExtractorBackbone(nn.Module):
     emitting {"s2": stride 4, ..., "s5": stride 32}."""
 
     def __init__(self, ldm_cfg: LdmConfig, out_features: Sequence[str] = ("s2", "s3", "s4", "s5"),
-                 min_stride: int = 4, max_stride: int = 32, projection_dim: int = 512):
+                 min_stride: int = 4, max_stride: int = 32, projection_dim: int = 512,
+                 fused_gn: bool = False):
         super().__init__()
         self.ldm_cfg, self.out_features = ldm_cfg, tuple(out_features)
         self.min_stride, self.max_stride = min_stride, max_stride
-        self.feature_extractor = LdmImplicitCaptionerExtractor(ldm_cfg)
+        self.feature_extractor = LdmImplicitCaptionerExtractor(ldm_cfg, fused_gn=fused_gn)
         for i, ch in enumerate(ldm_cfg.feature_channels()):
             setattr(self, f"proj_{i}", BottleneckBlock(ch, projection_dim, projection_dim // 4))
 

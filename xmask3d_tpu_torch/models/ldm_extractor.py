@@ -94,10 +94,11 @@ LDM_TINY = LdmConfig(
 class LdmExtractor(nn.Module):
     """VAE + UNet + frozen text encoder, emitting tapped features."""
 
-    def __init__(self, cfg: LdmConfig = LDM_SD_V1):
+    def __init__(self, cfg: LdmConfig = LDM_SD_V1, fused_gn: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.vae = AutoencoderKL(cfg.vae, cfg.encoder_block_indices, cfg.decoder_block_indices)
+        self.vae = AutoencoderKL(cfg.vae, cfg.encoder_block_indices, cfg.decoder_block_indices,
+                                 fused_gn)
         self.unet = SDUNet(cfg.unet, cfg.unet_block_indices)
         self.text_encoder = CLIPTextTower(cfg.text)
         self.diffusion = GaussianDiffusion(cfg.diffusion_steps, cfg.noise_schedule)
@@ -145,11 +146,13 @@ class PositionalLinear(nn.Module):
 
 
 class LdmImplicitCaptionerExtractor(nn.Module):
-    """Conditions the SD UNet on the 3D global embedding."""
+    """Conditions the SD UNet on the 3D global embedding. `fused_gn` runs the
+    VAE resblocks' GroupNorm -> SiLU -> conv stages on kernel K4."""
 
-    def __init__(self, cfg: LdmConfig = LDM_SD_V1, dim_latent: int = 768, num_timesteps: int = 1):
+    def __init__(self, cfg: LdmConfig = LDM_SD_V1, dim_latent: int = 768, num_timesteps: int = 1,
+                 fused_gn: bool = False):
         super().__init__()
-        self.ldm_extractor = LdmExtractor(cfg)
+        self.ldm_extractor = LdmExtractor(cfg, fused_gn)
         self.clip_project = PositionalLinear(dim_latent, cfg.text.width, cfg.text.context_length)
         self.alpha_cond = nn.Parameter(torch.zeros(1, cfg.text.context_length, cfg.text.width))
         time_dim = 4 * cfg.unet.model_channels

@@ -1,8 +1,9 @@
 """Stable Diffusion v1 VAE (AutoencoderKL), NHWC, with feature taps.
 
 Counterpart of `xmask3d_tpu/models/vae.py`: GroupNorm -> SiLU -> conv
-resblocks (the unfused path), single-head mid-block attention through kernel
-K2. The encoder and decoder return the inputs of the flattened blocks listed
+resblocks, each stage either as three modules (the default) or, with
+`fused_gn`, as one call of kernel K4 (`ops/gn_conv.py`) on the same
+parameters; single-head mid-block attention through kernel K2. The encoder and decoder return the inputs of the flattened blocks listed
 in their tap indices; the decoder stops once its last tap is taken, since
 the eval path uses only the taps (the rest of the decoder is dead code that
 XLA removes on the JAX side).
@@ -19,6 +20,7 @@ from torch import nn
 
 from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, upsample2x_nearest
 from xmask3d_tpu_torch.ops.flash_attention import attention
+from xmask3d_tpu_torch.ops.gn_conv import gn_silu_conv, kernel_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,18 +37,39 @@ VAE_TINY = VAEConfig(ch=16, ch_mult=(1, 1, 2, 2), num_res_blocks=2)
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int):
+    """Two GroupNorm -> SiLU -> conv3x3 stages and a residual. The parameter
+    tree is the same with `fused_gn` on or off."""
+
+    def __init__(self, in_ch: int, out_ch: int, fused_gn: bool = False):
         super().__init__()
+        self.fused_gn = fused_gn
         self.norm1 = GroupNorm(in_ch)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1)
         self.norm2 = GroupNorm(out_ch)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1)
         if in_ch != out_ch:
             self.nin_shortcut = Conv(in_ch, out_ch, 1)
+        self._k4_params = {}  # conv name -> (key, K4's layout of its weight and bias)
+
+    def _stage(self, x, norm: GroupNorm, conv: Conv, name: str):
+        if not self.fused_gn:
+            return conv(F.silu(norm(x)))
+        # the port's Conv stores OIHW; K4 takes HWIO, and on the card its own
+        # layout, made again only when the weights or x's type change
+        w = conv.weight.permute(2, 3, 1, 0)
+        params = None
+        if x.is_cuda:
+            key = (w.data_ptr(), w._version, conv.bias.data_ptr(), conv.bias._version, x.dtype)
+            hit = self._k4_params.get(name)
+            if hit is None or hit[0] != key:
+                hit = self._k4_params[name] = (key, kernel_params(w, conv.bias, x.dtype))
+            params = hit[1]
+        return gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w, conv.bias,
+                            groups=norm.groups, params=params)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._stage(x, self.norm1, self.conv1, "conv1")
+        h = self._stage(h, self.norm2, self.conv2, "conv2")
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -91,7 +114,8 @@ class Upsample(nn.Module):
 
 
 class VAEEncoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, tap_indices: Sequence[int] = (5, 7)):
+    def __init__(self, cfg: VAEConfig, tap_indices: Sequence[int] = (5, 7),
+                 fused_gn: bool = False):
         super().__init__()
         c = cfg
         self.cfg, self.tap_indices = cfg, tuple(tap_indices)
@@ -99,13 +123,13 @@ class VAEEncoder(nn.Module):
         ch = c.ch
         for i_level, mult in enumerate(c.ch_mult):
             for i_block in range(c.num_res_blocks):
-                setattr(self, f"down_{i_level}_block_{i_block}", ResnetBlock(ch, c.ch * mult))
+                setattr(self, f"down_{i_level}_block_{i_block}", ResnetBlock(ch, c.ch * mult, fused_gn))
                 ch = c.ch * mult
             if i_level != len(c.ch_mult) - 1:
                 setattr(self, f"down_{i_level}_downsample", Downsample(ch))
-        self.mid_block_1 = ResnetBlock(ch, ch)
+        self.mid_block_1 = ResnetBlock(ch, ch, fused_gn)
         self.mid_attn_1 = AttnBlock(ch)
-        self.mid_block_2 = ResnetBlock(ch, ch)
+        self.mid_block_2 = ResnetBlock(ch, ch, fused_gn)
         self.norm_out = GroupNorm(ch)
         self.conv_out = Conv(ch, 2 * c.z_channels, 3, padding=1)
 
@@ -128,21 +152,22 @@ class VAEEncoder(nn.Module):
 
 
 class VAEDecoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, tap_indices: Sequence[int] = (2, 5)):
+    def __init__(self, cfg: VAEConfig, tap_indices: Sequence[int] = (2, 5),
+                 fused_gn: bool = False):
         super().__init__()
         c = cfg
         self.cfg, self.tap_indices = cfg, tuple(tap_indices)
         n_lv = len(c.ch_mult)
         block_in = c.ch * c.ch_mult[-1]
         self.conv_in = Conv(c.z_channels, block_in, 3, padding=1)
-        self.mid_block_1 = ResnetBlock(block_in, block_in)
+        self.mid_block_1 = ResnetBlock(block_in, block_in, fused_gn)
         self.mid_attn_1 = AttnBlock(block_in)
-        self.mid_block_2 = ResnetBlock(block_in, block_in)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, fused_gn)
         ch = block_in
         for i_level in reversed(range(n_lv)):
             out_ch = c.ch * c.ch_mult[i_level]
             for i_block in range(c.num_res_blocks + 1):
-                setattr(self, f"up_{i_level}_block_{i_block}", ResnetBlock(ch, out_ch))
+                setattr(self, f"up_{i_level}_block_{i_block}", ResnetBlock(ch, out_ch, fused_gn))
                 ch = out_ch
             if i_level != 0:
                 setattr(self, f"up_{i_level}_upsample", Upsample(ch))
@@ -172,11 +197,12 @@ class VAEDecoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """VAE with quant/post-quant 1x1 projections and mean latents."""
 
-    def __init__(self, cfg: VAEConfig, encoder_taps=(5, 7), decoder_taps=(2, 5)):
+    def __init__(self, cfg: VAEConfig, encoder_taps=(5, 7), decoder_taps=(2, 5),
+                 fused_gn: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.encoder = VAEEncoder(cfg, encoder_taps)
-        self.decoder = VAEDecoder(cfg, decoder_taps)
+        self.encoder = VAEEncoder(cfg, encoder_taps, fused_gn)
+        self.decoder = VAEDecoder(cfg, decoder_taps, fused_gn)
         self.quant_conv = nn.Linear(2 * cfg.z_channels, 2 * cfg.embed_dim)
         self.post_quant_conv = nn.Linear(cfg.embed_dim, cfg.z_channels)
 

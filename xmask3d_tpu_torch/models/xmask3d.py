@@ -51,6 +51,8 @@ class XMask3DConfig:
     dec_layers: int = 9
     pixel_enc_layers: int = 6
     dtype: torch.dtype = torch.float32
+    # the VAE resblocks' GroupNorm -> SiLU -> conv3x3 stages on kernel K4
+    fused_gn: bool = False
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -102,7 +104,7 @@ class XMask3D(nn.Module):
         c = self.cfg = cfg
         self.pc_decoder = PCProcessor(arch=c.arch_3d)
         self.pc_binary_head = PCBinaryProcessor(arch=c.arch_binary_head)
-        self.backbone = FeatureExtractorBackbone(c.ldm)
+        self.backbone = FeatureExtractorBackbone(c.ldm, fused_gn=c.fused_gn)
         self.pixel_decoder = MSDeformAttnPixelDecoder(enc_layers=c.pixel_enc_layers)
         self.mask_decoder = ODISEMaskedTransformerDecoder(
             num_classes=c.num_classes, num_queries=c.num_queries,

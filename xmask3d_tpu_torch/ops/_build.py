@@ -22,7 +22,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("sparse_conv", "flash_attention", "deform_attn")
+KERNELS = ("sparse_conv", "flash_attention", "deform_attn", "gn_conv")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> function that sets argtypes/restype on the loaded library

@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure:
   1. build the CUDA kernels from `xmask3d_tpu_torch/csrc/` (one nvcc each,
-     in parallel);
+     in parallel) and log what ptxas reports per kernel (registers, spills);
   2. build the full-width B15N4 model in bf16 with seeded weights drawn on
      the card, its statics through the CLIP text tower, and four synthetic
      views at the bench's default capacities (32768 points, 24576 voxels,
@@ -13,12 +13,21 @@ Phases, each of which raises on failure:
   3. run one warm-up view while recording every kernel call (through the
      wrappers' recorder hook), then hold each kernel against its plain
      PyTorch version on those recorded inputs, call by call (in bf16 as
-     recorded, and again in fp32), and time both per view;
+     recorded, and again in fp32), and time both per view by CUDA events
+     around a view's launches (`ms`, which includes the gaps in which the
+     card waits for the host); K1 and K2 also per shape (`by_shape`:
+     variant, launches, ms, bound and, for K2,
+     `scaled_dot_product_attention`), and K1's share of skipped (16-row
+     strip, tap) steps per level;
   4. one uncounted view to refill the allocator's cache, then the main
      path: three views through the serving view body (forward,
      routing, vote) with every launch counter set to 0 first; checks the
-     launch counts, the vote table and the outputs, and profiles one more
-     view (device time by kernel, the device's idle share);
+     launch counts, that every bf16 call of K1 and K2 took a tensor-core
+     variant (counted per variant), the vote table and the outputs,
+     profiles one more view (device time by kernel, the device's idle
+     share), and only then takes each kernel's device-busy time on its
+     recorded calls from the profiler (`device_ms`, per shape for K1 and
+     K2): once used, the profiler slows every later launch on the host;
   5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
      stages on kernel K4 (`fused_gn`): the same seeded weights, two
      synthetic scenes of 40000 points and 8 views each through the
@@ -121,11 +130,19 @@ def kernel_table():
     return {
         "sparse_conv": {
             "fn": sparse_conv.sparse_conv, "plain": sparse_conv.sparse_conv_reference,
+            "variant": lambda call: sparse_conv.variant(call[0], call[1], call[2]),
+            # taps, C_in, C_out, output rows
+            "shape": lambda call: (call[1].shape[0], call[1].shape[1], call[1].shape[2],
+                                   call[2].shape[2]),
             "source": "xmask3d_tpu_torch/csrc/sparse_conv.cu",
             "replaces": "xmask3d_tpu/ops/sparse_conv_pallas.py:279",
         },
         "flash_attention": {
             "fn": flash_attention.attention, "plain": flash_attention.reference_attention,
+            "variant": lambda call: flash_attention.variant(call[0], call[1]),
+            # heads, queries, keys, head dim
+            "shape": lambda call: (call[0].shape[1], call[0].shape[2], call[1].shape[2],
+                                   call[0].shape[3]),
             "source": "xmask3d_tpu_torch/csrc/flash_attention.cu",
             "replaces": "xmask3d_tpu/ops/flash_attention.py:65",
         },
@@ -166,6 +183,37 @@ def recording(calls):
         yield
     finally:
         _build.RECORDER = None
+
+
+@contextlib.contextmanager
+def counting_variants(table, counts):
+    """Count, per kernel that names its variants, the variant each call takes
+    (through the recorder hook, which every wrapper calls once per call)."""
+    from xmask3d_tpu_torch.ops import _build
+
+    def rec(name, args):
+        if "variant" in table.get(name, ()):
+            v = table[name]["variant"](args)
+            counts.setdefault(name, {})
+            counts[name][v] = counts[name].get(v, 0) + 1
+
+    _build.RECORDER = rec
+    try:
+        yield
+    finally:
+        _build.RECORDER = None
+
+
+def check_variants(counts, expected, n_views) -> None:
+    """Every bf16 call of K1 and K2 must take a tensor-core variant."""
+    for name in ("sparse_conv", "flash_attention"):
+        got = counts.get(name, {})
+        if sum(got.values()) != expected[name] * n_views:
+            raise AssertionError(f"{name}: variants {got} do not add up to "
+                                 f"{expected[name] * n_views} calls")
+        off = {v: n for v, n in got.items() if not v.startswith("mma_")}
+        if off:
+            raise AssertionError(f"{name}: bf16 calls on a CUDA-core variant: {off}")
 
 
 def launches():
@@ -260,6 +308,64 @@ def time_calls(fn, calls, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(jobs, reps: int) -> list:
+    """Device-busy ms for one pass over each job's calls; a job is
+    (fn, calls). The summed durations of the kernels and copies the calls put
+    on the card, from torch.profiler. Unlike `time_calls` it leaves out the
+    gaps in which the card waits for the host's next launch, which dominate
+    once a kernel takes a few microseconds.
+
+    The profiler can lose records: a stretch of them in a long session, all
+    of them in a session of a few short kernels. So all jobs run in one
+    session behind some throwaway launches, and each job starts with three
+    marker kernels that split the card's timeline (on one stream it is in
+    launch order); a run of markers is one boundary, so a lost marker costs
+    nothing and a lost kernel its few microseconds. A session that does not
+    show every boundary and work behind each is taken again, with another
+    number of throwaway launches so that the records fall differently; after
+    four such sessions the times are None and the log says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = torch.zeros(1, device="cuda")
+    for fn, calls in jobs:
+        for args in calls:
+            fn(*args)
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50 + 37 * attempt):
+                mark.add_(0)
+            torch.cuda.synchronize()
+            for fn, calls in jobs:
+                for _ in range(3):
+                    torch.erfinv(mark)
+                for _ in range(reps):
+                    for args in calls:
+                        fn(*args)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy_us, after_marker = [], False
+        for start, stop, name in spans:
+            if "erfinv" in name:
+                if not after_marker:
+                    busy_us.append(0.0)
+                after_marker = True
+                continue
+            after_marker = False
+            if busy_us:
+                busy_us[-1] += stop - start
+        if len(busy_us) == len(jobs) and all(us > 0 for us in busy_us):
+            return [us / 1e3 / reps for us in busy_us]
+        log({"phase": "device_ms_retry", "attempt": attempt, "events": len(spans),
+             "boundaries": len(busy_us), "jobs": len(jobs)})
+    log({"phase": "device_ms_unmeasured", "jobs": len(jobs),
+         "why": "four profiler sessions lost a job's boundary or all of its kernels"})
+    return [None] * len(jobs)
+
+
 def max_err(fn, plain, calls, tol):
     """Each call held to its own scale: per call, |kernel - plain| against
     tol * max(1, max |plain|). Returns (max abs error, the worst call's
@@ -284,6 +390,22 @@ def max_err(fn, plain, calls, tol):
             worst, at, at_scale = ratio, i, scale
         outs.append(got)
     return err, worst, at, at_scale, outs
+
+
+def tap_skipping(calls) -> dict:
+    """K1's (16-row strip, tap) steps on the recorded kernel-3 calls, one
+    call per level (levels differ in their output rows): how many the gather
+    variant walks and the share it skips for want of a hit."""
+    from xmask3d_tpu_torch.ops.sparse_conv import strip_tap_steps
+
+    levels = {}
+    for feats, w, kmap, _, valid in calls:
+        if w.shape[0] == 27 and kmap.shape[2] not in levels:
+            steps, hit = strip_tap_steps(kmap, valid)
+            levels[kmap.shape[2]] = {"rows": kmap.shape[2], "steps": steps, "with_hit": hit,
+                                     "skipped_share": 1 - hit / max(steps, 1)}
+    return {"phase": "k1_tap_skipping",
+            "levels": [levels[v] for v in sorted(levels, reverse=True)]}
 
 
 def unfused_stages(calls):
@@ -336,6 +458,7 @@ def check_kernels(table, calls) -> list:
             errs[dtype] = err
             if dtype == "bf16":
                 bound_ms, bound_by = bound(name, cs, outs)
+                outs_bf16 = outs
             del outs
         reps = 5
         timed = cs
@@ -353,6 +476,22 @@ def check_kernels(table, calls) -> list:
         if name == "gn_silu_conv":
             with torch.no_grad():
                 unfused = time_calls(lambda stage, x: stage(x), unfused_stages(cs), reps)
+        by_shape = None
+        if "shape" in k:
+            groups = {}
+            for c, o in zip(cs, outs_bf16):
+                groups.setdefault((k["shape"](c), k["variant"](c)), []).append((c, o))
+            by_shape = []
+            for (shape, var), members in groups.items():
+                g_calls = [c for c, _ in members]
+                g_bound, g_by = bound(name, g_calls, [o for _, o in members])
+                by_shape.append({
+                    "shape": list(shape), "variant": var, "launches": len(g_calls),
+                    "ms": time_calls(k["fn"], g_calls, reps),
+                    "bound_ms": g_bound, "bound_by": g_by,
+                    "library_ms": time_calls(F.scaled_dot_product_attention, g_calls, reps)
+                    if name == "flash_attention" else None})
+        del outs_bf16
         row = {
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": None, "max_abs_err": errs["bf16"],
@@ -360,10 +499,48 @@ def check_kernels(table, calls) -> list:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
         }
         log({"phase": "kernel_time", "kernel": name, "ms": row["ms"], "plain_ms": row["plain_ms"],
-             "bound_ms": bound_ms, "library_ms": library, "unfused_ms": unfused, "runs_ms": t})
+             "bound_ms": bound_ms, "library_ms": library, "unfused_ms": unfused, "runs_ms": t,
+             "by_shape": by_shape})
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def device_times(table, calls, rows) -> None:
+    """The kernels' device-busy time on their recorded calls (`device_ms`),
+    K1 and K2 also per shape and K2 beside `scaled_dot_product_attention`;
+    adds `device_ms` and `library_device_ms` to each kernel's row. It runs
+    after the counted views: the profiler it uses stays attached to the
+    process and slows every later launch on the host."""
+    import torch.nn.functional as F
+
+    reps = 5
+    for row in rows:
+        name = row["name"]
+        k, cs = table[name], calls[name]
+        timed = cs
+        if name == "gn_silu_conv":
+            from xmask3d_tpu_torch.ops.gn_conv import kernel_params
+
+            timed = [c + (kernel_params(c[3], c[4], c[0].dtype),) for c in cs]
+        sdpa = F.scaled_dot_product_attention if name == "flash_attention" else None
+        groups = {}
+        if "shape" in k:
+            for c in cs:
+                groups.setdefault((k["shape"](c), k["variant"](c)), []).append(c)
+        jobs = [(k["fn"], timed)] + [(k["fn"], g) for g in groups.values()]
+        if sdpa:
+            jobs += [(sdpa, cs)] + [(sdpa, g) for g in groups.values()]
+        ms = device_ms(jobs, reps)
+        n = 1 + len(groups)
+        row["device_ms"] = ms[0]
+        row["library_device_ms"] = ms[n] if sdpa else None
+        by_shape = [{"shape": list(shape), "variant": var, "launches": len(g),
+                     "device_ms": ms[1 + i],
+                     "library_device_ms": ms[n + 1 + i] if sdpa else None}
+                    for i, ((shape, var), g) in enumerate(groups.items())] or None
+        log({"phase": "kernel_device_time", "kernel": name, "device_ms": row["device_ms"],
+             "library_device_ms": row["library_device_ms"], "by_shape": by_shape})
 
 
 # --------------------------------------------------------------------------
@@ -413,8 +590,7 @@ def profile_view(fn, *args) -> dict:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     ours = {k: sum(ms for n, ms in by_name.items() if k in n)
-            for k in ("sparse_conv_kernel", "flash_fwd_kernel", "deform_attn_kernel",
-                      "gn_conv_bf16_kernel")}
+            for k in ("sparse_conv_", "flash_", "deform_attn_kernel", "gn_conv_bf16_kernel")}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
@@ -570,7 +746,9 @@ def scene_phase(cfg, caps, table) -> dict:
         if len(calls.get(name, ())) != n or launches()[name] != n:
             raise AssertionError(f"{name}: {len(calls.get(name, ()))} calls, {launches()[name]} "
                                  f"launches in the scene warm-up view, expected {n}")
-    rows = {row["name"]: row for row in check_kernels(table, calls)}
+    rows = check_kernels(table, calls)
+    device_times(table, calls, rows)
+    rows = {row["name"]: row for row in rows}
     log({"phase": "scene_kernel_rows", "rows": list(rows.values())})
     row = rows["gn_silu_conv"]
     del calls
@@ -583,19 +761,22 @@ def scene_phase(cfg, caps, table) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
-    summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
-                              infer_step=infer_step, route_2d=route_2d, record=record)
+    variants = {}
+    with counting_variants(table, variants):
+        summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
+                                  infer_step=infer_step, route_2d=route_2d, record=record)
     seconds = time.time() - t0
     counts = launches()
     log({"phase": "scenes", "scenes": len(scenes), "views": n_views, "seconds": seconds,
          "seconds_per_scene": seconds / len(scenes), "host_ms_per_view": seconds * 1e3 / n_views,
          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
-         "expected_per_view": expected, "summary": summary,
+         "expected_per_view": expected, "variants": variants, "summary": summary,
          "kept": [r["kept"] for r in record], "counter": [r["counter"] for r in record]})
     for name, n in expected.items():
         if counts[name] != n * n_views:
             raise AssertionError(f"{name}: {counts[name]} launches over the scenes, "
                                  f"expected {n * n_views}")
+    check_variants(variants, expected, n_views)
     for rec, sc in zip(record, scenes):
         if rec["views"] != len(sc["views"]) or rec["kept"] <= 0:
             raise AssertionError(f"{rec['name']}: {rec['views']} views, {rec['kept']} kept rows")
@@ -639,8 +820,9 @@ def main() -> int:
          "cuda": torch.version.cuda})
 
     t0 = time.time()
-    _build.build_all()
-    log({"phase": "build", "seconds": time.time() - t0, "kernels": list(_build.KERNELS)})
+    build_log = _build.build_all()
+    log({"phase": "build", "seconds": time.time() - t0, "kernels": list(_build.KERNELS),
+         "ptxas": _build.resource_usage(build_log)})
 
     t0 = time.time()
     cfg = load_config(CONFIG)
@@ -682,6 +864,7 @@ def main() -> int:
                                  f"launches in the warm-up view, expected {n}")
 
     rows = check_kernels(table, calls)
+    log(tap_skipping(calls["sparse_conv"]))
     del calls
     torch.cuda.empty_cache()
     # the kernel checks emptied the allocator's cache: one uncounted view
@@ -696,22 +879,24 @@ def main() -> int:
     votes, counter = fresh_vote_state(caps.max_points, mc.num_test_classes)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    view_ms = []
-    for batch in views[1:]:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        votes, counter = view_body(batch, statics, votes, counter)
-        torch.cuda.synchronize()
-        view_ms.append((time.time() - t0) * 1e3)
+    view_ms, variants = [], {}
+    with counting_variants(table, variants):
+        for batch in views[1:]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            votes, counter = view_body(batch, statics, votes, counter)
+            torch.cuda.synchronize()
+            view_ms.append((time.time() - t0) * 1e3)
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     n_views = len(views) - 1
     log({"phase": "main_path", "views": n_views, "view_ms": view_ms,
          "mean_view_ms": sum(view_ms) / n_views, "peak_mem_bytes": peak,
-         "launches": counts, "expected_per_view": expected})
+         "launches": counts, "expected_per_view": expected, "variants": variants})
     for name, n in expected.items():
         if counts[name] != n * n_views:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {n * n_views}")
+    check_variants(variants, expected, n_views)
     for row in rows:
         row["launches"] = counts[row["name"]]
 
@@ -720,6 +905,13 @@ def main() -> int:
         raise AssertionError(f"votes {int(votes.sum())} / counter {int(counter.sum())} "
                              f"!= {valid} valid view points")
     log(profile_view(view_body, views[1], statics, votes, counter))
+    # the same view recorded again (its calls were freed before the counted
+    # views, which slow down beside ~2 GB of held tensors)
+    calls = {name: [] for name, n in expected.items() if n}
+    with recording(calls):
+        view_body(views[0], statics, *fresh_vote_state(caps.max_points, mc.num_test_classes))
+    device_times(table, calls, rows)
+    del calls
     outputs = model.eval_forward(views[1], statics)
     check_outputs(outputs, caps, mc)
     log({"phase": "outputs", "ok": True,

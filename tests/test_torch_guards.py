@@ -201,6 +201,70 @@ def test_chip_smoke_counts_sparse_conv_bytes_of_live_outputs_only():
     assert ops == 2 * 3 * 3 * 5
 
 
+def test_chip_smoke_counts_variants_and_refuses_cuda_core_ones():
+    """`counting_variants` names the variant of every K1 / K2 call through the
+    recorder hook; `check_variants` fails when a call took a CUDA-core variant
+    or when the counts do not add up to the expected launches."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from xmask3d_tpu_torch.ops import _build
+    from xmask3d_tpu_torch.ops import flash_attention as tfa
+    from xmask3d_tpu_torch.ops import sparse_conv as tsc
+
+    table = chip_smoke.kernel_table()
+    feats, w = torch.ones(1, 4, 8).bfloat16(), torch.ones(2, 8, 16).bfloat16()
+    kmap = torch.tensor([[[0, 1, -1, 3], [-1, 2, 0, 0]]], dtype=torch.int32)
+    q = torch.ones(1, 2, 3, 40).bfloat16()
+    counts = {}
+    with chip_smoke.counting_variants(table, counts):
+        tsc.sparse_conv(feats, w, kmap)
+        tfa.attention(q, q, q)
+        tfa.attention(q, q, q)
+    assert _build.RECORDER is None
+    assert counts == {"sparse_conv": {tsc.variant(feats, w, kmap): 1},
+                      "flash_attention": {"mma_d48_one_tile": 2}}
+    expected = {"sparse_conv": 1, "flash_attention": 2}
+    chip_smoke.check_variants(counts, expected, 1)
+    with pytest.raises(AssertionError, match="add up"):
+        chip_smoke.check_variants(counts, expected, 2)
+    with chip_smoke.counting_variants(table, counts):
+        tfa.attention(q.float(), q.float(), q.float())
+    with pytest.raises(AssertionError, match="CUDA-core"):
+        chip_smoke.check_variants(counts, {"sparse_conv": 1, "flash_attention": 3}, 1)
+
+
+def test_resource_usage_reads_ptxas_lines():
+    from xmask3d_tpu_torch.ops import _build
+
+    log = (
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__0db9_14_sparse_conv_cu_010b"
+        "22sparse_conv_mma_kernelILi64ELi32ELi4EEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN47_x\n"
+        "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__666b9db0_14_deform_attn_cu_d4c53d10"
+        "18deform_attn_kernelIfEEvPKT_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 16896 bytes smem, 400 bytes cmem[0]\n")
+    assert _build.resource_usage(log) == [
+        {"kernel": "sparse_conv_mma_kernel<64, 32, 4>", "registers": 80, "spill_stores": 8,
+         "spill_loads": 12, "static_smem": 0},
+        {"kernel": "deform_attn_kernel", "registers": 40, "spill_stores": 0, "spill_loads": 0,
+         "static_smem": 16896}]
+
+
+def test_gpu_test_file_imports_no_jax():
+    """The card's machine has no JAX: the GPU tests must import none of it."""
+    path = os.path.join(ROOT, "tests", "test_torch_kernels_gpu.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)]
+
+
 @pytest.mark.parametrize("name", sorted(
     os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "configs/scannet/xmask3d_*.yaml"))))
 def test_config_equals_jax_loader(name):

@@ -44,10 +44,12 @@ def _close(fn, plain, args, kwargs, tol):
     assert err <= tol * max(1.0, float(ref.abs().max())), err
 
 
-@pytest.mark.parametrize("kernel,cin,cout", [(5, 3, 64), (3, 96, 128), (3, 13, 7), (2, 32, 32)])
+@pytest.mark.parametrize("kernel,cin,cout", [(5, 3, 64), (3, 96, 128), (3, 384, 128), (3, 256, 256),
+                                             (3, 13, 7), (2, 32, 32), (3, 64, 96), (3, 40, 320)])
 def test_sparse_conv(cuda, kernel, cin, cout):
-    """Stem (125 taps, C_in 3), k3, odd widths and a stride-2 down map, with
-    missing neighbours and all-padding tiles."""
+    """Stem (125 taps, C_in 3), k3 at the path's widest layers, odd widths, a
+    width that tiles C_out over the grid and a stride-2 down map, with missing
+    neighbours, all-padding tiles and `out_valid`."""
     rng = np.random.RandomState(kernel + cin)
     coords = np.unique(rng.randint(0, 24, size=(3000, 3)).astype(np.int32), axis=0)
     caps = (4096, 2048, 1024, 512, 256)
@@ -60,18 +62,94 @@ def test_sparse_conv(cuda, kernel, cin, cout):
     bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda)
     kmap = torch.from_numpy(kmap).to(cuda)
     for dt, tol in DTYPES:
+        name = tsc.variant(feats.to(dt), w.to(dt), kmap)
+        assert name.startswith("mma_") == (dt == torch.bfloat16), name
         _close(tsc.sparse_conv, tsc.sparse_conv_reference,
                (feats.to(dt), w.to(dt), kmap), dict(bias=bias, out_valid=valid), tol)
+        _close(tsc.sparse_conv, tsc.sparse_conv_reference, (feats.to(dt), w.to(dt), kmap), {}, tol)
 
 
-@pytest.mark.parametrize("tq,tk,d,h", [(4096, 4096, 40, 8), (1024, 77, 80, 8), (64, 64, 160, 8),
-                                       (1000, 300, 40, 2), (4096, 4096, 512, 1)])
+def test_sparse_conv_sparse_strips_batch_and_misaligned_views(cuda):
+    """B = 2 with different maps; whole 16-row strips and 64-row tiles without
+    a hit or a live row among live ones; a dead row whose map entries point at
+    NaN features; and feature / weight views off 16 bytes, which take the
+    packed mode of the same width."""
+    rng = np.random.RandomState(7)
+    b, v, cin, cout, k = 2, 640, 32, 64, 27
+    kmap = rng.randint(0, 600, size=(b, k, v)).astype(np.int32)
+    kmap[rng.rand(b, k, v) < 0.7] = -1
+    kmap[:, :, 16:48] = -1          # two strips of a live tile hit nothing
+    kmap[:, 5:20, 128:192] = -1     # a tile that skips most taps
+    valid = np.ones((b, v), bool)
+    valid[:, 256:384] = False       # two dead tiles
+    valid[0, 3] = valid[1, 70] = False
+    feats = rng.randn(b, v, cin).astype(np.float32)
+    kmap[0, :, 3], kmap[1, :, 70] = 600, 601
+    feats[:, 600:602] = np.nan      # referenced by dead rows only
+    w = torch.from_numpy(rng.randn(k, cin, cout).astype(np.float32)).to(cuda)
+    feats, kmap, valid = (torch.from_numpy(a).to(cuda) for a in (feats, kmap, valid))
+    steps, hit = tsc.strip_tap_steps(kmap, valid)
+    assert 0 < hit < steps
+    for dt, tol in DTYPES:
+        args = (feats.to(dt), w.to(dt), kmap)
+        _close(tsc.sparse_conv, tsc.sparse_conv_reference, args, dict(out_valid=valid), tol)
+        if dt == torch.bfloat16:
+            fbuf = torch.zeros(feats.numel() + 1, dtype=dt, device=cuda)
+            wbuf = torch.zeros(w.numel() + 1, dtype=dt, device=cuda)
+            fbuf[1:] = args[0].reshape(-1)
+            wbuf[1:] = args[1].reshape(-1)
+            off = (fbuf[1:].view(feats.shape), wbuf[1:].view(w.shape), kmap)
+            assert off[0].data_ptr() % 16 and off[0].is_contiguous()
+            _close(tsc.sparse_conv, tsc.sparse_conv_reference, off, dict(out_valid=valid), tol)
+
+
+# every shape class of the full-width path (SD UNet self- and cross-attention
+# at 8 heads, the 64-token mid block, the VAE's single 512-wide head), ragged
+# edges on both sides, and head dims off the 8-value copy width
+K2_SHAPES = [(4096, 4096, 40, 8), (4096, 77, 40, 8), (1024, 1024, 80, 8), (1024, 77, 80, 8),
+             (256, 77, 160, 8), (64, 64, 160, 8), (4096, 4096, 512, 1), (1000, 300, 40, 2),
+             (100, 130, 36, 2), (70, 77, 20, 3), (50, 200, 200, 1), (300, 1000, 128, 2)]
+
+
+@pytest.mark.parametrize("tq,tk,d,h", K2_SHAPES)
 def test_flash_attention(cuda, tq, tk, d, h):
     rng = np.random.RandomState(tq + d)
     q, k, v = (torch.from_numpy(rng.randn(1, h, t, d).astype(np.float32)).to(cuda)
                for t in (tq, tk, tk))
     for dt, tol in DTYPES:
+        args = (q.to(dt), k.to(dt), v.to(dt))
+        name = tfa.variant(args[0], args[1])
+        assert name.startswith("mma_") == (dt == torch.bfloat16), name
+        _close(tfa.attention, tfa.reference_attention, args, {}, tol)
+
+
+@pytest.mark.parametrize("tq,tk,d,h", [(256, 300, 40, 2), (128, 77, 80, 2), (64, 200, 512, 1)])
+def test_flash_attention_near_one_hot(cuda, tq, tk, d, h):
+    """A few large scores: the softmax is close to one-hot, so the running
+    max moves late and by a lot, and most probabilities underflow to 0."""
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.from_numpy(rng.randn(1, h, t, d).astype(np.float32)).to(cuda)
+               for t in (tq, tk, tk))
+    n = min(tq, tk)
+    k[:, :, :n] += 6.0 * q[:, :, :n]  # query i scores ~6 sqrt(d) on key i
+    for dt, tol in DTYPES:
         _close(tfa.attention, tfa.reference_attention, (q.to(dt), k.to(dt), v.to(dt)), {}, tol)
+
+
+@pytest.mark.parametrize("tq,tk,d", [(200, 77, 40), (100, 300, 160), (64, 100, 512), (90, 77, 36)])
+def test_flash_attention_reads_nothing_past_the_keys(cuda, tq, tk, d):
+    """K and V are contiguous slices of buffers that hold NaN beyond Tk: a
+    kernel that reads past the ragged edge shows it."""
+    rng = np.random.RandomState(tk + d)
+    q = torch.from_numpy(rng.randn(1, 1, tq, d).astype(np.float32)).to(cuda)
+    for dt, tol in DTYPES:
+        bufs = []
+        for _ in range(2):
+            buf = torch.full((1, 1, tk + 160, d), float("nan"), dtype=dt, device=cuda)
+            buf[:, :, :tk] = torch.from_numpy(rng.randn(1, 1, tk, d).astype(np.float32)).to(cuda)
+            bufs.append(buf[:, :, :tk])
+        assert all(b.is_contiguous() for b in bufs)
+        _close(tfa.attention, tfa.reference_attention, (q.to(dt), *bufs), {}, tol)
 
 
 def test_deform_attn(cuda):

@@ -124,3 +124,92 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         tsc.sparse_conv(x, torch.zeros(27, 3, 8, device="meta"),
                         torch.zeros(1, 27, 4, dtype=torch.int32, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# which kernel a call takes on the card (`variant`, `kernel_plan`) and the
+# (strip, tap) steps it walks
+# --------------------------------------------------------------------------
+
+
+def _full_width_conv_shapes():
+    """(taps, C_in, C_out) of every sparse conv with a kernel map in the two
+    full-width MinkUNets, plus their fused k5 stem."""
+    from xmask3d_tpu_torch.models.minkunet import SparseConv, mink_unet
+
+    shapes = {(125, 3, 64)}
+    with torch.device("meta"):
+        nets = [mink_unet(arch="MinkUNet34C"), mink_unet(arch="MinkUNet18A")]
+    for net in nets:
+        for mod in net.modules():
+            if isinstance(mod, SparseConv) and mod.kernel.shape[0] in (8, 27):
+                shapes.add(tuple(mod.kernel.shape))
+    return sorted(shapes)
+
+
+LEVEL_CAPS = (24576, 12288, 6144, 3072, 1536)
+
+
+@pytest.mark.parametrize("k,c_in,c_out", _full_width_conv_shapes())
+def test_variant_of_every_full_width_conv(k, c_in, c_out):
+    """At every level's capacity: bf16 takes a tensor-core variant whose
+    channel tiles cover C_out, gathers by 16-byte copies unless a width is off
+    8 values (only the stem), and splits K only where the level cannot fill
+    the card; fp32 takes the CUDA-core kernel."""
+    assert c_in % 8 == 0 or (k, c_in) == (125, 3)
+    for v_out in LEVEL_CAPS:
+        name, nc, kc, packed, split = tsc.kernel_plan(torch.bfloat16, k, c_in, c_out, v_out)
+        feats = torch.empty(1, v_out, c_in, dtype=torch.bfloat16, device="meta")
+        w = torch.empty(k, c_in, c_out, dtype=torch.bfloat16, device="meta")
+        kmap = torch.empty(1, k, v_out, dtype=torch.int32, device="meta")
+        assert tsc.variant(feats, w, kmap) == name and name.startswith("mma_")
+        assert nc in tsc.MMA_WIDTHS and kc in (32, 64)
+        assert packed == (c_in % 8 != 0) and ("packed" in name) == packed
+        full = min(w for w in tsc.MMA_WIDTHS if w >= c_out)
+        tiles = -(-v_out // tsc.TILE_ROWS)
+        # narrower than C_out only where twice the width would leave SMs idle
+        assert nc == full or (64 <= nc < full and tiles * -(-c_out // (2 * nc)) < tsc.SM_COUNT)
+        blocks = -(-v_out // tsc.TILE_ROWS) * -(-c_out // nc)
+        units = -(-k * c_in // kc) if packed else k
+        assert 1 <= split <= units
+        assert (split == 1) == (blocks >= 2 * tsc.SM_COUNT or units == 1)
+        assert (kc == 64) == (not packed and c_in % 64 == 0)
+        assert tsc.variant(feats.float(), w.float(), kmap) == "fma_fp32"
+
+
+def test_kernel_plan_of_odd_and_misaligned_inputs():
+    assert tsc.kernel_plan(torch.bfloat16, 27, 13, 7, 4096)[:4] == ("mma_packed_n32_k32_s11", 32, 32, True)
+    assert tsc.kernel_plan(torch.bfloat16, 27, 32, 64, 24576) == ("mma_gather_n64_k32", 64, 32, False, 1)
+    # the same widths through a view off 16 bytes: packed mode, same tile
+    assert tsc.kernel_plan(torch.bfloat16, 27, 32, 64, 24576, aligned=False) == \
+        ("mma_packed_n64_k32", 64, 32, True, 1)
+    # C_out beyond a block's 256 channels is tiled over the grid
+    assert tsc.kernel_plan(torch.bfloat16, 27, 64, 640, 65536)[1] == 256
+
+
+@pytest.mark.parametrize("seed,with_valid", [(0, True), (1, False), (2, True)])
+def test_strip_tap_steps_against_numpy(seed, with_valid):
+    """The (16-row strip, tap) steps of live 64-row tiles and those with a
+    hit, counted by loops in numpy, rows past a ragged last tile included."""
+    rng = np.random.RandomState(seed)
+    b, k, v = 2, 8, 200  # 3 full tiles and a ragged one
+    kmap = rng.randint(0, v, size=(b, k, v)).astype(np.int32)
+    kmap[rng.rand(b, k, v) < 0.9] = -1
+    kmap[:, :, 64:128] = -1
+    valid = np.ones((b, v), bool)
+    if with_valid:
+        valid[:, 128:192] = False
+        valid[0, 5] = False
+    steps = hit = 0
+    for i in range(b):
+        for t0 in range(0, v, 64):
+            if not valid[i, t0:t0 + 64].any():
+                continue
+            for s0 in range(t0, t0 + 64, 16):
+                for tap in range(k):
+                    steps += 1
+                    rows = slice(s0, min(s0 + 16, v))
+                    hit += bool(((kmap[i, tap, rows] >= 0) & valid[i, rows]).any())
+    got = tsc.strip_tap_steps(torch.from_numpy(kmap),
+                              torch.from_numpy(valid) if with_valid else None)
+    assert got == (steps, hit) and 0 < hit < steps

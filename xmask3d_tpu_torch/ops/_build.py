@@ -7,7 +7,9 @@ every C entry point returns `cudaGetLastError()` after its launch and
 `check` raises when that is not 0.
 
 Libraries go to `xmask3d_tpu_torch/_build/` (git-ignored) and are rebuilt
-when their source is newer. `build_all` starts one `nvcc` per source at once.
+when their source is newer. `build_all` starts one `nvcc` per source at once
+and returns nvcc's output, which holds ptxas' resource usage per kernel
+(`resource_usage` parses it).
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])  # shared headers
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _command(name: str) -> List[str]:
@@ -66,6 +69,7 @@ def _command(name: str) -> List[str]:
     return [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v",  # registers, spills and shared memory per kernel, into the build log
         "-o", str(tmp), str(src),
     ]
 
@@ -94,6 +98,41 @@ def build_all(names: Iterable[str] = KERNELS) -> str:
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
     return "\n".join(log)
+
+
+def resource_usage(log: str) -> List[dict]:
+    """ptxas' verbose lines of a build log as one dict per compiled kernel:
+    its name with its integer template arguments, registers, spill
+    stores/loads and static shared memory (bytes)."""
+    import re
+
+    rows, name = [], None
+    spill = (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            # the mangled name holds <length><function name>, then I Li<n>E ... E
+            # (every suffix of a digit run is tried: a hash may end in digits)
+            for ln in re.finditer(r"(?=(\d+)[a-z])", name):
+                start = ln.end(1)
+                end = start + int(ln.group(1))
+                if name[start:end].endswith("_kernel"):
+                    args = re.match(r"I((?:Li\d+E)+)E", name[end:])
+                    ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                    name = name[start:end] + (f"<{', '.join(ints)}>" if ints else "")
+                    break
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1],
+                         "static_smem": int(smem.group(1)) if smem else 0})
+            name = None
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

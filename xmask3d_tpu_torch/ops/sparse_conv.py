@@ -232,6 +232,65 @@ def sparse_conv_reference(
     return out
 
 
+# output channels a block of the tensor-core kernel can hold, the rows of a
+# block and of a warp's strip, and the card's SM count; all mirror
+# csrc/sparse_conv.cu
+MMA_WIDTHS = (32, 64, 128, 256)
+TILE_ROWS, STRIP_ROWS = 64, 16
+SM_COUNT = 132
+
+
+def kernel_plan(dtype: torch.dtype, n_taps: int, c_in: int, c_out: int, v_out: int,
+                aligned: bool = True) -> Tuple[str, int, int, bool, int]:
+    """(variant name, output channels a block holds, K values a staged chunk,
+    packed mode, K split) of the kernel a call takes. bf16 runs on the tensor
+    cores: rows gathered by 16-byte copies when both widths are multiples of
+    8 (and the pointers `aligned` to 16 bytes), else taps and channels packed
+    into one K dimension by scalar loads. A block holds all of C_out up to
+    256, but where the level's 64-row tiles would leave SMs idle it narrows,
+    down to 64 channels, and C_out is tiled over the grid. Where even that
+    gives fewer than two blocks an SM (the deep levels, where moreover few
+    rows are live), the taps of a tile are split over `split` blocks, aiming
+    at eight blocks an SM by capacity, and a second small kernel adds their
+    fp32 partial sums. Chunks are 64 channels where C_in is a multiple of 64,
+    else 32. fp32 runs on CUDA cores."""
+    if dtype == torch.float32:
+        return "fma_fp32", 0, 0, False, 1
+    nc = next((w for w in MMA_WIDTHS if c_out <= w), MMA_WIDTHS[-1])
+    tiles = -(-v_out // TILE_ROWS)
+    while nc > 64 and tiles * -(-c_out // nc) < SM_COUNT:
+        nc //= 2
+    packed = not (aligned and c_in % 8 == 0 and c_out % 8 == 0)
+    kc = 64 if (c_in % 64 == 0 and not packed) else 32
+    blocks = max(1, tiles * -(-c_out // nc))
+    units = -(-n_taps * c_in // kc) if packed else n_taps
+    split = 1 if blocks >= 2 * SM_COUNT else max(1, min(units, -(-8 * SM_COUNT // blocks)))
+    name = f"mma_{'packed' if packed else 'gather'}_n{nc}_k{kc}" + (f"_s{split}" if split > 1 else "")
+    return name, nc, kc, packed, split
+
+
+def variant(feats: torch.Tensor, weights: torch.Tensor, kmap: torch.Tensor) -> str:
+    """The kernel variant `sparse_conv(feats, weights, kmap, ...)` launches on
+    the card: a pure function of shapes and dtype (tensors from the allocator
+    are aligned; a misaligned view takes the packed mode of the same width)."""
+    return kernel_plan(feats.dtype, *weights.shape, kmap.shape[2])[0]
+
+
+def strip_tap_steps(kmap: torch.Tensor, out_valid: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(steps, steps with a hit) over the (16-row strip, tap) pairs of every
+    64-row tile that has a live output row: what the gather variant walks and
+    what it multiplies. A strip skips a tap none of its live rows hits."""
+    b, k, v = kmap.shape
+    live = torch.ones((b, v), dtype=torch.bool, device=kmap.device) if out_valid is None else out_valid
+    pad = -v % TILE_ROWS
+    hit = torch.nn.functional.pad((kmap >= 0) & live[:, None, :], (0, pad))
+    live = torch.nn.functional.pad(live, (0, pad))
+    strips = hit.reshape(b, k, -1, STRIP_ROWS).any(-1)  # (B, K, V / 16)
+    tiles = live.reshape(b, -1, TILE_ROWS).any(-1)  # (B, V / 64)
+    per_tile = TILE_ROWS // STRIP_ROWS
+    return int(tiles.sum()) * per_tile * k, int(strips.sum())
+
+
 def sparse_conv(
     feats: torch.Tensor,
     weights: torch.Tensor,
@@ -274,12 +333,19 @@ def sparse_conv(
         return sparse_conv_reference(feats, weights, kmap, bias, out_valid)
     out = torch.empty((b, v_out, c_out), dtype=feats.dtype, device=feats.device)
     lib = _build.load("sparse_conv")
-    fn = lib.xm_sparse_conv_bf16 if feats.dtype == torch.bfloat16 else lib.xm_sparse_conv_f32
-    err = fn(
-        _build.ptr(feats), _build.ptr(weights), _build.ptr(kmap), _build.ptr(bias_f),
-        _build.ptr(valid_u8), _build.ptr(out),
-        b, v_in, c_in, c_out, k, v_out, _build.stream(feats.device),
-    )
+    ptrs = (_build.ptr(feats), _build.ptr(weights), _build.ptr(kmap), _build.ptr(bias_f),
+            _build.ptr(valid_u8), _build.ptr(out))
+    dims = (b, v_in, c_in, c_out, k, v_out)
+    if feats.dtype == torch.bfloat16:
+        aligned = feats.data_ptr() % 16 == 0 and weights.data_ptr() % 16 == 0
+        _, nc, kc, packed, split = kernel_plan(feats.dtype, k, c_in, c_out, v_out, aligned)
+        part = None  # fp32 scratch for the K shares; only live tiles are written and read
+        if split > 1:
+            part = torch.empty((split, b, v_out, c_out), dtype=torch.float32, device=feats.device)
+        err = lib.xm_sparse_conv_bf16(*ptrs, _build.ptr(part), *dims, nc, kc, int(packed), split,
+                                      _build.stream(feats.device))
+    else:
+        err = lib.xm_sparse_conv_f32(*ptrs, *dims, _build.stream(feats.device))
     _build.check(err, "sparse_conv")
     sparse_conv.launches += 1
     return out
@@ -291,9 +357,9 @@ sparse_conv.launches = 0
 def _bind(lib):
     import ctypes
 
-    for name in ("xm_sparse_conv_f32", "xm_sparse_conv_bf16"):
+    for name, ptrs, ints in (("xm_sparse_conv_f32", 6, 6), ("xm_sparse_conv_bf16", 7, 10)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 

@@ -15,19 +15,20 @@ Phases, each of which raises on failure:
      PyTorch version on those recorded inputs, call by call (in bf16 as
      recorded, and again in fp32), and time both per view by CUDA events
      around a view's launches (`ms`, which includes the gaps in which the
-     card waits for the host); K1 and K2 also per shape (`by_shape`:
-     variant, launches, ms, bound and, for K2,
-     `scaled_dot_product_attention`), and K1's share of skipped (16-row
-     strip, tap) steps per level;
+     card waits for the host); also per shape (`by_shape`: variant,
+     launches, ms, bound and, for K2, `scaled_dot_product_attention`, for
+     K4 the port's unfused stages), K1's share of skipped (16-row strip,
+     tap) steps per level and the bytes K3's taps gather;
   4. one uncounted view to refill the allocator's cache, then the main
      path: three views through the serving view body (forward,
      routing, vote) with every launch counter set to 0 first; checks the
      launch counts, that every bf16 call of K1 and K2 took a tensor-core
-     variant (counted per variant), the vote table and the outputs,
-     profiles one more view (device time by kernel, the device's idle
-     share), and only then takes each kernel's device-busy time on its
-     recorded calls from the profiler (`device_ms`, per shape for K1 and
-     K2): once used, the profiler slows every later launch on the host;
+     variant and of K3 the 16-byte-gather one (counted per variant), the
+     vote table and the outputs, profiles one more view (device time by
+     kernel, the device's idle share), and only then takes each kernel's
+     device-busy time on its recorded calls from the profiler
+     (`device_ms`, per shape): once used, the profiler slows every later
+     launch on the host;
   5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
      stages on kernel K4 (`fused_gn`): the same seeded weights, two
      synthetic scenes of 40000 points and 8 views each through the
@@ -35,9 +36,11 @@ Phases, each of which raises on failure:
      multi-view votes, KD-tree fill, IoU meters). A warm-up run of the
      scenes' fullest view records every kernel's calls, which are held
      against their plain versions (bf16 and fp32; K4 also timed beside the
-     port's unfused stages); the `kernels` line takes K4's row from here;
-     then the counted scenes
-     check every kernel's launches, the votes, the fill and the summaries;
+     port's unfused stages, and its statistics kernels on their own); the
+     `kernels` line takes K4's row from here; then the counted scenes check
+     every kernel's launches (K4's statistics once per conv), that every
+     bf16 K4 call took a tensor-core variant, the votes, the fill and the
+     summaries;
   6. the tiny model on the card (fp32, kernels) against the same model on
      the CPU (plain versions), unfused and with `fused_gn`.
 
@@ -148,11 +151,17 @@ def kernel_table():
         },
         "deform_attn": {
             "fn": deform_attn.ms_deform_attn, "plain": deform_attn.ms_deform_attn_reference,
+            "variant": lambda call: deform_attn.variant(call[0], call[2]),
+            # batch, queries, heads, head dim, levels, points
+            "shape": lambda call: (*call[2].shape[:3], call[0].shape[3], *call[2].shape[3:5]),
             "source": "xmask3d_tpu_torch/csrc/deform_attn.cu",
             "replaces": "xmask3d_tpu/ops/deform_attn.py:190",
         },
         "gn_silu_conv": {
             "fn": gn_conv.gn_silu_conv, "plain": gn_conv.gn_silu_conv_reference,
+            "variant": lambda call: gn_conv.variant(call[0], call[3]),
+            # batch, rows, columns, C, C_out
+            "shape": lambda call: (*call[0].shape, call[3].shape[3]),
             "source": "xmask3d_tpu_torch/csrc/gn_conv.cu",
             "replaces": "xmask3d_tpu/ops/gn_conv.py:141",
         },
@@ -204,25 +213,47 @@ def counting_variants(table, counts):
         _build.RECORDER = None
 
 
+# the variants a bf16 call of the path must take: tensor cores for K1, K2 and
+# K4, the 16-byte gathers for K3
+FAST_VARIANTS = {"sparse_conv": ("mma_",), "flash_attention": ("mma_",),
+                 "gn_silu_conv": ("wgmma_",), "deform_attn": ("vec_",)}
+
+
 def check_variants(counts, expected, n_views) -> None:
-    """Every bf16 call of K1 and K2 must take a tensor-core variant."""
-    for name in ("sparse_conv", "flash_attention"):
+    """Every bf16 call of the path's kernels must take a fast variant. A
+    kernel the path does not run has an expected count of 0; one with no
+    expected count at all is an error."""
+    for name, prefixes in FAST_VARIANTS.items():
+        if name not in expected:
+            raise KeyError(f"{name}: no expected launch count")
+        if expected[name] == 0:
+            continue
         got = counts.get(name, {})
         if sum(got.values()) != expected[name] * n_views:
             raise AssertionError(f"{name}: variants {got} do not add up to "
                                  f"{expected[name] * n_views} calls")
-        off = {v: n for v, n in got.items() if not v.startswith("mma_")}
+        off = {v: n for v, n in got.items() if not v.startswith(prefixes)}
         if off:
-            raise AssertionError(f"{name}: bf16 calls on a CUDA-core variant: {off}")
+            raise AssertionError(f"{name}: bf16 calls on a CUDA-core or scalar variant, "
+                                 f"not {prefixes}: {off}")
 
 
 def launches():
-    return {name: k["fn"].launches for name, k in kernel_table().items()}
+    """Each kernel's launch count; K4's statistics (two kernels, one count a
+    call) beside K4."""
+    from xmask3d_tpu_torch.ops.gn_conv import group_affine
+
+    counts = {name: k["fn"].launches for name, k in kernel_table().items()}
+    counts["gn_statistics"] = group_affine.launches
+    return counts
 
 
 def reset_launches():
+    from xmask3d_tpu_torch.ops.gn_conv import group_affine
+
     for k in kernel_table().values():
         k["fn"].launches = 0
+    group_affine.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -433,6 +464,42 @@ def unfused_stages(calls):
     return out
 
 
+def run_stage(stage, x):
+    import torch
+
+    with torch.no_grad():
+        return stage(x)
+
+
+def with_params(name, calls):
+    """K4's calls as the resblocks make them, with the weight layout made once
+    per conv; other kernels' calls as they are."""
+    if name != "gn_silu_conv":
+        return calls
+    from xmask3d_tpu_torch.ops.gn_conv import kernel_params
+
+    return [c + (kernel_params(c[3], c[4], c[0].dtype),) for c in calls]
+
+
+def gather_bytes(calls) -> int:
+    """K3: bytes of the value rows its taps gather on these calls, in whole
+    32-byte sectors, counting only taps inside the maps of live samples; the
+    gathers' floor is this at the L2's rate (the rows stay in L2)."""
+    import torch
+
+    total = 0
+    for value, shapes, loc, _ in calls:
+        row = -(-value.shape[3] * value.element_size() // 32) * 32
+        for li, (h, w) in enumerate(shapes):
+            fx = torch.floor(loc[..., li, :, 0] * w - 0.5)
+            fy = torch.floor(loc[..., li, :, 1] * h - 0.5)
+            live = (fx >= -1) & (fx < w) & (fy >= -1) & (fy < h)
+            for ox, oy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                inside = (fx + ox >= 0) & (fx + ox < w) & (fy + oy >= 0) & (fy + oy < h)
+                total += int((live & inside).sum()) * row
+    return total
+
+
 def check_kernels(table, calls) -> list:
     """Each kernel with recorded calls against its plain version (bf16 as
     recorded, then fp32), then timed: kernel, plain, and for K4 the port's
@@ -461,12 +528,7 @@ def check_kernels(table, calls) -> list:
                 outs_bf16 = outs
             del outs
         reps = 5
-        timed = cs
-        if name == "gn_silu_conv":
-            # as the resblocks call K4: with its weight layout made once per conv
-            from xmask3d_tpu_torch.ops.gn_conv import kernel_params
-
-            timed = [c + (kernel_params(c[3], c[4], c[0].dtype),) for c in cs]
+        timed = with_params(name, cs)
         t = [time_calls(k["plain"], cs, 2), time_calls(k["fn"], timed, reps),
              time_calls(k["fn"], timed, reps), time_calls(k["plain"], cs, 2)]
         del timed
@@ -474,8 +536,7 @@ def check_kernels(table, calls) -> list:
         if name == "flash_attention":
             library = time_calls(F.scaled_dot_product_attention, cs, reps)
         if name == "gn_silu_conv":
-            with torch.no_grad():
-                unfused = time_calls(lambda stage, x: stage(x), unfused_stages(cs), reps)
+            unfused = time_calls(run_stage, unfused_stages(cs), reps)
         by_shape = None
         if "shape" in k:
             groups = {}
@@ -487,10 +548,12 @@ def check_kernels(table, calls) -> list:
                 g_bound, g_by = bound(name, g_calls, [o for _, o in members])
                 by_shape.append({
                     "shape": list(shape), "variant": var, "launches": len(g_calls),
-                    "ms": time_calls(k["fn"], g_calls, reps),
+                    "ms": time_calls(k["fn"], with_params(name, g_calls), reps),
                     "bound_ms": g_bound, "bound_by": g_by,
                     "library_ms": time_calls(F.scaled_dot_product_attention, g_calls, reps)
-                    if name == "flash_attention" else None})
+                    if name == "flash_attention" else None,
+                    "unfused_ms": time_calls(run_stage, unfused_stages(g_calls), reps)
+                    if name == "gn_silu_conv" else None})
         del outs_bf16
         row = {
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
@@ -500,6 +563,7 @@ def check_kernels(table, calls) -> list:
         }
         log({"phase": "kernel_time", "kernel": name, "ms": row["ms"], "plain_ms": row["plain_ms"],
              "bound_ms": bound_ms, "library_ms": library, "unfused_ms": unfused, "runs_ms": t,
+             "gather_bytes": gather_bytes(cs) if name == "deform_attn" else None,
              "by_shape": by_shape})
         rows.append(row)
         torch.cuda.empty_cache()
@@ -508,39 +572,43 @@ def check_kernels(table, calls) -> list:
 
 def device_times(table, calls, rows) -> None:
     """The kernels' device-busy time on their recorded calls (`device_ms`),
-    K1 and K2 also per shape and K2 beside `scaled_dot_product_attention`;
-    adds `device_ms` and `library_device_ms` to each kernel's row. It runs
-    after the counted views: the profiler it uses stays attached to the
-    process and slows every later launch on the host."""
+    per shape; K2 beside `scaled_dot_product_attention`, K4 beside the
+    port's unfused stages and with its statistics kernels alone; adds
+    `device_ms` and `library_device_ms` to each kernel's row. It runs after
+    the counted views: the profiler it uses stays attached to the process
+    and slows every later launch on the host."""
     import torch.nn.functional as F
+
+    from xmask3d_tpu_torch.ops.gn_conv import group_affine
 
     reps = 5
     for row in rows:
         name = row["name"]
         k, cs = table[name], calls[name]
-        timed = cs
-        if name == "gn_silu_conv":
-            from xmask3d_tpu_torch.ops.gn_conv import kernel_params
-
-            timed = [c + (kernel_params(c[3], c[4], c[0].dtype),) for c in cs]
-        sdpa = F.scaled_dot_product_attention if name == "flash_attention" else None
         groups = {}
-        if "shape" in k:
-            for c in cs:
-                groups.setdefault((k["shape"](c), k["variant"](c)), []).append(c)
-        jobs = [(k["fn"], timed)] + [(k["fn"], g) for g in groups.values()]
-        if sdpa:
-            jobs += [(sdpa, cs)] + [(sdpa, g) for g in groups.values()]
+        for c in cs:
+            groups.setdefault((k["shape"](c), k["variant"](c)), []).append(c)
+        # each job over the view's calls, then over each shape's
+        sets = [cs] + list(groups.values())
+        jobs = [(k["fn"], with_params(name, g)) for g in sets]
+        if name == "flash_attention":
+            jobs += [(F.scaled_dot_product_attention, g) for g in sets]
+        if name == "gn_silu_conv":
+            jobs += [(run_stage, unfused_stages(g)) for g in sets]
+            jobs += [(group_affine, [c[:3] + c[5:7] for c in g]) for g in sets]
         ms = device_ms(jobs, reps)
-        n = 1 + len(groups)
+        n = len(sets)
+        extra = {"flash_attention": ["library_device_ms"],
+                 "gn_silu_conv": ["unfused_device_ms", "stats_device_ms"]}.get(name, [])
         row["device_ms"] = ms[0]
-        row["library_device_ms"] = ms[n] if sdpa else None
-        by_shape = [{"shape": list(shape), "variant": var, "launches": len(g),
-                     "device_ms": ms[1 + i],
-                     "library_device_ms": ms[n + 1 + i] if sdpa else None}
-                    for i, ((shape, var), g) in enumerate(groups.items())] or None
-        log({"phase": "kernel_device_time", "kernel": name, "device_ms": row["device_ms"],
-             "library_device_ms": row["library_device_ms"], "by_shape": by_shape})
+        row["library_device_ms"] = ms[n] if name == "flash_attention" else None
+        whole = {key: ms[n * (1 + j)] for j, key in enumerate(extra)}
+        by_shape = [dict({"shape": list(shape), "variant": var, "launches": len(g),
+                          "device_ms": ms[1 + i]},
+                         **{key: ms[n * (1 + j) + 1 + i] for j, key in enumerate(extra)})
+                    for i, ((shape, var), g) in enumerate(groups.items())]
+        log(dict({"phase": "kernel_device_time", "kernel": name, "device_ms": row["device_ms"]},
+                 **whole, by_shape=by_shape))
 
 
 # --------------------------------------------------------------------------
@@ -590,7 +658,8 @@ def profile_view(fn, *args) -> dict:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     ours = {k: sum(ms for n, ms in by_name.items() if k in n)
-            for k in ("sparse_conv_", "flash_", "deform_attn_kernel", "gn_conv_bf16_kernel")}
+            for k in ("sparse_conv_", "flash_", "deform_attn_", "gn_conv_wgmma_", "gn_stats_",
+                      "gn_affine_")}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
@@ -777,6 +846,9 @@ def scene_phase(cfg, caps, table) -> dict:
             raise AssertionError(f"{name}: {counts[name]} launches over the scenes, "
                                  f"expected {n * n_views}")
     check_variants(variants, expected, n_views)
+    if counts["gn_statistics"] != counts["gn_silu_conv"]:
+        raise AssertionError(f"K4's statistics ran {counts['gn_statistics']} times for "
+                             f"{counts['gn_silu_conv']} conv launches")
     for rec, sc in zip(record, scenes):
         if rec["views"] != len(sc["views"]) or rec["kept"] <= 0:
             raise AssertionError(f"{rec['name']}: {rec['views']} views, {rec['kept']} kept rows")

@@ -49,3 +49,26 @@ def test_samples_outside_contribute_zero():
     ref = np.asarray(ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(aw)))
     np.testing.assert_allclose(_port(value, shapes, loc, aw), ref, rtol=1e-5, atol=1e-5)
     assert np.abs(ref).max() > 0
+
+
+@pytest.mark.parametrize("dtype,d,levels,points,aligned,want", [
+    (torch.bfloat16, 32, 3, 4, True, ("vec_d32_l3p4", 4, True)),
+    (torch.bfloat16, 32, 4, 1, True, ("vec_d32_any", 4, False)),
+    (torch.bfloat16, 8, 3, 4, True, ("vec_d8_any", 1, False)),
+    (torch.bfloat16, 64, 1, 8, True, ("vec_d64_any", 8, False)),
+    (torch.bfloat16, 256, 2, 2, True, ("vec_d256_any", 32, False)),
+    (torch.bfloat16, 36, 3, 4, True, ("scalar_bf16", 0, False)),
+    (torch.bfloat16, 48, 3, 4, True, ("scalar_bf16", 0, False)),
+    (torch.bfloat16, 512, 3, 4, True, ("scalar_bf16", 0, False)),
+    (torch.bfloat16, 32, 3, 4, False, ("scalar_bf16", 0, False)),
+    (torch.float32, 32, 3, 4, True, ("scalar_fp32", 0, False)),
+])
+def test_kernel_plan(dtype, d, levels, points, aligned, want):
+    """bf16 head dims of 8 times a power of two take the 16-byte-gather
+    kernel with d / 8 lanes a value row, unrolled at the pixel decoder's
+    d = 32 x 3 levels x 4 points; everything else the scalar kernel."""
+    assert tda.kernel_plan(dtype, d, levels, points, aligned) == want
+    value = torch.zeros(1, 4, 2, d, dtype=dtype)
+    loc = torch.zeros(1, 3, 2, levels, points, 2)
+    if aligned:
+        assert tda.variant(value, loc) == want[0]

@@ -223,14 +223,54 @@ def test_chip_smoke_counts_variants_and_refuses_cuda_core_ones():
     assert _build.RECORDER is None
     assert counts == {"sparse_conv": {tsc.variant(feats, w, kmap): 1},
                       "flash_attention": {"mma_d48_one_tile": 2}}
-    expected = {"sparse_conv": 1, "flash_attention": 2}
+    expected = {"sparse_conv": 1, "flash_attention": 2, "gn_silu_conv": 0, "deform_attn": 0}
     chip_smoke.check_variants(counts, expected, 1)
     with pytest.raises(AssertionError, match="add up"):
         chip_smoke.check_variants(counts, expected, 2)
+    # a kernel with no expected count is an error, not a kernel to skip
+    with pytest.raises(KeyError, match="deform_attn"):
+        chip_smoke.check_variants(counts, {"sparse_conv": 1, "flash_attention": 2,
+                                           "gn_silu_conv": 0}, 1)
     with chip_smoke.counting_variants(table, counts):
         tfa.attention(q.float(), q.float(), q.float())
     with pytest.raises(AssertionError, match="CUDA-core"):
-        chip_smoke.check_variants(counts, {"sparse_conv": 1, "flash_attention": 3}, 1)
+        chip_smoke.check_variants(counts, dict(expected, flash_attention=3), 1)
+
+
+def test_chip_smoke_refuses_slow_k3_and_k4_variants():
+    """K4's bf16 calls must take a tensor-core (`wgmma_`) variant and K3's its
+    16-byte-gather (`vec_`) one; a K4 call in fp32 or a K3 head dim the vector
+    kernel does not take fails `check_variants`."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from xmask3d_tpu_torch.ops import deform_attn as tda
+    from xmask3d_tpu_torch.ops import gn_conv as tgc
+
+    table = chip_smoke.kernel_table()
+    x = torch.zeros(1, 4, 6, 32).bfloat16()
+    w, v = torch.zeros(3, 3, 32, 16), torch.ones(32)
+    value = torch.zeros(1, 5, 2, 32).bfloat16()
+    loc, aw = torch.zeros(1, 3, 2, 1, 4, 2), torch.zeros(1, 3, 2, 1, 4)
+    counts = {}
+    with chip_smoke.counting_variants(table, counts):
+        tgc.gn_silu_conv(x, v, v, w, v[:16])
+        tda.ms_deform_attn(value, [(1, 5)], loc, aw)
+    assert counts == {"gn_silu_conv": {"wgmma_n64": 1}, "deform_attn": {"vec_d32_any": 1}}
+    none = {"sparse_conv": 0, "flash_attention": 0, "gn_silu_conv": 0, "deform_attn": 0}
+    chip_smoke.check_variants(counts, dict(none, gn_silu_conv=1, deform_attn=1), 1)
+    for name, fn, args in (
+            ("gn_silu_conv", tgc.gn_silu_conv, (x.float(), v, v, w, v[:16])),
+            ("deform_attn", tda.ms_deform_attn,
+             (torch.zeros(1, 5, 2, 36).bfloat16(), [(1, 5)], loc, aw))):
+        got = {}
+        with chip_smoke.counting_variants(table, got):
+            fn(*args)
+        with pytest.raises(AssertionError, match="scalar variant"):
+            chip_smoke.check_variants(got, dict(none, **{name: 1}), 1)
+    # K4's only tensor-core variants are the wgmma ones: an mma.sync name fails
+    with pytest.raises(AssertionError, match="wgmma_"):
+        chip_smoke.check_variants({"gn_silu_conv": {"mma_n128": 1}},
+                                  dict(none, gn_silu_conv=1), 1)
 
 
 def test_resource_usage_reads_ptxas_lines():

@@ -161,8 +161,62 @@ def test_deform_attn(cuda):
     loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (1, n, 8, 3, 4, 2)).astype(np.float32)).to(cuda)
     aw = torch.softmax(torch.from_numpy(rng.randn(1, n, 8, 12).astype(np.float32)), -1)
     aw = aw.reshape(1, n, 8, 3, 4).to(cuda)
+    assert tda.variant(value.bfloat16(), loc) == "vec_d32_l3p4"
     for dt, tol in DTYPES:
         _close(tda.ms_deform_attn, tda.ms_deform_attn_reference, (value.to(dt), shapes, loc, aw), {}, tol)
+
+
+def _deform_case(rng, b, d, shapes, npts, heads=3, lq=53):
+    n = sum(h * w for h, w in shapes)
+    value = rng.randn(b, n, heads, d).astype(np.float32)
+    loc = rng.uniform(-0.3, 1.3, (b, lq, heads, len(shapes), npts, 2)).astype(np.float32)
+    aw = rng.rand(b, lq, heads, len(shapes), npts).astype(np.float32)
+    return value, loc, aw
+
+
+@pytest.mark.parametrize("d,shapes,npts", [
+    (8, [(6, 9), (3, 5)], 4), (32, [(16, 16), (8, 8), (4, 4), (2, 2)], 1),
+    (64, [(12, 7)], 8), (36, [(5, 11), (9, 4)], 2), (32, [(7, 13)], 8), (128, [(6, 6), (3, 3)], 3),
+])
+def test_deform_attn_widths_levels_points(cuda, d, shapes, npts):
+    """B = 2, head dims 8 / 32 / 64 / 128 on the vector kernel and 36 (off a
+    power of two) on the scalar one, 1 to 4 levels, 1 to 8 points."""
+    rng = np.random.RandomState(d + npts)
+    value, loc, aw = (torch.from_numpy(a).to(cuda) for a in _deform_case(rng, 2, d, shapes, npts))
+    want = "scalar_bf16" if d == 36 else f"vec_d{d}_any"
+    assert tda.variant(value.bfloat16(), loc) == want
+    for dt, tol in DTYPES:
+        _close(tda.ms_deform_attn, tda.ms_deform_attn_reference, (value.to(dt), shapes, loc, aw), {}, tol)
+
+
+@pytest.mark.parametrize("d", [8, 32])
+def test_deform_attn_edges_and_nothing_past_the_levels(cuda, d):
+    """Locations on every side beyond [0, 1], exactly on 0 and 1, and exactly
+    where a corner reaches -1 or the map's size (the sample is kept at -1 and
+    dropped at size), with value a contiguous view of a buffer that holds
+    NaN past the last level: a gather past the levels would show."""
+    rng = np.random.RandomState(d)
+    shapes = [(8, 8), (4, 6), (2, 2)]
+    n, heads, lq, npts = sum(h * w for h, w in shapes), 2, 40, 4
+    edge = []
+    for h, w in shapes:
+        edge.append([0.0, 1.0, -0.5 / w, (w + 0.5) / w, -0.5 / w + 1e-3, -0.7, 1.6, 0.5])
+    loc = rng.uniform(-0.4, 1.4, (1, lq, heads, len(shapes), npts, 2)).astype(np.float32)
+    for li in range(len(shapes)):
+        vals = np.array(edge[li], np.float32)
+        loc[0, :, :, li, :, 0] = rng.choice(vals, (lq, heads, npts))
+        loc[0, :, :, li, :, 1] = rng.choice(vals * shapes[li][1] / shapes[li][0], (lq, heads, npts))
+    aw = rng.rand(1, lq, heads, len(shapes), npts).astype(np.float32)
+    loc, aw = torch.from_numpy(loc).to(cuda), torch.from_numpy(aw).to(cuda)
+    for dt, tol in DTYPES:
+        numel = n * heads * d
+        buf = torch.full((numel + 64 * heads * d,), float("nan"), dtype=dt, device=cuda)
+        buf[:numel] = torch.from_numpy(rng.randn(numel).astype(np.float32)).to(cuda)
+        value = buf[:numel].view(1, n, heads, d)
+        assert value.is_contiguous()
+        got = tda.ms_deform_attn(value, shapes, loc, aw)
+        assert torch.isfinite(got.float()).all()
+        _close(tda.ms_deform_attn, tda.ms_deform_attn_reference, (value, shapes, loc, aw), {}, tol)
 
 
 @pytest.mark.parametrize("c,cout,h,w", [(16, 16, 13, 21), (48, 48, 9, 35), (128, 128, 24, 40),
@@ -181,6 +235,126 @@ def test_gn_silu_conv(cuda, c, cout, h, w):
     for dt, tol in DTYPES:
         _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference,
                (x.to(dt), scale, bias, wt, b, groups), {}, tol)
+
+
+def _gn_args(rng, bsz, h, w, c, cout, cuda, loc=0.5, spread=2.0):
+    x = torch.from_numpy(rng.randn(bsz, h, w, c).astype(np.float32) * spread + loc).to(cuda)
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.1).to(cuda)
+    wt = torch.from_numpy(rng.randn(3, 3, c, cout).astype(np.float32) * (0.5 / np.sqrt(9 * c))).to(cuda)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.1).to(cuda)
+    return x, scale, bias, wt, b
+
+
+@pytest.mark.parametrize("bsz,c,cout,h,w,variant", [
+    (1, 128, 128, 40, 48, "wgmma_n64"), (1, 128, 256, 40, 48, "wgmma_n64"),
+    (1, 256, 512, 40, 48, "wgmma_n64"), (1, 512, 512, 40, 48, "wgmma_n64"),
+    (2, 128, 128, 136, 130, "wgmma_n128"), (1, 512, 512, 64, 64, "wgmma_n64"),
+    (1, 256, 512, 128, 128, "wgmma_n128"), (1, 72, 200, 9, 70, "wgmma_n64"),
+    (2, 20, 24, 11, 67, "wgmma_n64"),
+])
+def test_gn_silu_conv_path_widths_and_variants(cuda, bsz, c, cout, h, w, variant):
+    """The VAE's channel pairs at a reduced 40 x 48 map, both block widths
+    of the tensor-core conv (128 output channels where the grid fills the
+    card, 64 at the deep levels) with ragged row and column tiles, C off the
+    64-channel chunk (72), C_out off the 128-channel tile (200, 24) and C off
+    the 8-channel copy (20: plain-load staging)."""
+    rng = np.random.RandomState(c + cout + h + w)
+    x, scale, bias, wt, b = _gn_args(rng, bsz, h, w, c, cout, cuda)
+    assert tgc.variant(x.bfloat16(), wt) == variant
+    assert tgc.variant(x, wt) == "fma_fp32"
+    for dt, tol in DTYPES:
+        _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference,
+               (x.to(dt), scale, bias, wt, b, gn_groups(c)), {}, tol)
+
+
+def test_gn_silu_conv_batches_with_different_statistics(cuda):
+    """B = 2 whose batches differ by 40x in spread and by a mean of -20, and
+    groups of mean 30 and spread 0.5; the bf16 x is also read through a view
+    off 16 bytes (plain-load staging and scalar statistics)."""
+    rng = np.random.RandomState(11)
+    x, scale, bias, wt, b = _gn_args(rng, 2, 24, 70, 128, 128, cuda)
+    x[0] = x[0] * 0.1
+    x[1] = x[1] * 4.0 - 20.0
+    x[:, :, :, 64:] = 30.0 + 0.5 * torch.randn_like(x[:, :, :, 64:])
+    for dt, tol in DTYPES:
+        args = (x.to(dt), scale, bias, wt, b, 32)
+        _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference, args, {}, tol)
+        if dt == torch.bfloat16:
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=cuda)
+            buf[1:] = args[0].reshape(-1)
+            off = buf[1:].view(x.shape)
+            assert off.data_ptr() % 16 and off.is_contiguous()
+            _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference, (off, *args[1:]), {}, tol)
+
+
+def _stats_against_float64(x, scale, bias, groups):
+    bsz, h, w, c = x.shape
+    n = tgc.group_affine.launches
+    a, s = tgc.group_affine(x, scale, bias, groups, 1e-6)
+    torch.cuda.synchronize()
+    assert tgc.group_affine.launches == n + 1
+    xd = x.double().reshape(bsz, h * w, groups, c // groups)
+    var, mean = torch.var_mean(xd, dim=(1, 3), correction=0)
+    a64 = torch.rsqrt(var + 1e-6)[..., None] * scale.double().reshape(groups, -1)
+    s64 = bias.double().reshape(groups, -1) - mean[..., None] * a64
+    a64, s64 = a64.reshape(bsz, c), s64.reshape(bsz, c)
+    assert float((a.double() - a64).abs().max()) <= 1e-5 * float(a64.abs().max())
+    assert float((s.double() - s64).abs().max()) <= 1e-5 * float(s64.abs().max())
+
+
+@pytest.mark.parametrize("loc,spread,bsz,h,w,c", [
+    (30.0, 0.5, 2, 40, 48, 128), (0.0, 1.0, 1, 64, 64, 512), (30.0, 0.5, 1, 128, 128, 256),
+    (-3.0, 5.0, 2, 9, 13, 20),
+])
+def test_group_statistics_kernel_against_float64(cuda, loc, spread, bsz, h, w, c):
+    """The statistics kernels alone against float64 `var_mean` of the same
+    values (bf16 and fp32 x): a within 1e-5 of max |a|, s within 1e-5 of
+    max |s|, at a large mean over a small spread as well as at unit scale."""
+    rng = np.random.RandomState(int(loc) + c + h)
+    x, scale, bias, _, _ = _gn_args(rng, bsz, h, w, c, 8, cuda, loc=loc, spread=spread)
+    for dt in (torch.bfloat16, torch.float32):
+        _stats_against_float64(x.to(dt), scale, bias, gn_groups(c))
+
+
+@pytest.mark.parametrize("dt,c,offset,groups", [
+    (torch.bfloat16, 512, 1, 32), (torch.float32, 512, 1, 32), (torch.bfloat16, 260, 0, 4),
+    (torch.float32, 1028, 3, 4),
+])
+def test_gn_silu_conv_wide_channels_on_scalar_statistics(cuda, dt, c, offset, groups):
+    """Widths whose statistics take scalar loads: the VAE's 512 channels in
+    a view off 16 bytes (bf16 and fp32), bf16 C = 260 (off 8 channels) and
+    fp32 C = 1028 off 16 bytes; more channel slots than the statistics
+    kernel has threads, so a thread takes several in turn. The statistics
+    against float64 and the whole call against the plain version."""
+    rng = np.random.RandomState(c + offset)
+    x, scale, bias, wt, b = _gn_args(rng, 2, 12, 20, c, 64, cuda, loc=30.0, spread=0.5)
+    x[1] = x[1] * 3.0 - 100.0
+    buf = torch.empty(x.numel() + offset, dtype=dt, device=cuda)
+    buf[offset:] = x.to(dt).reshape(-1)
+    xv = buf[offset:].view(x.shape)
+    assert xv.is_contiguous() and (xv.data_ptr() % 16 != 0) == (offset != 0)
+    assert tgc.stats_plan(12 * 20, c, dt, xv.data_ptr() % 16 == 0)[2] == 1
+    _stats_against_float64(xv, scale, bias, groups)
+    tol = dict(DTYPES)[dt]
+    _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference, (xv, scale, bias, wt, b, groups), {}, tol)
+
+
+@pytest.mark.parametrize("dt,c", [(torch.bfloat16, 4096), (torch.float32, 6400)])
+def test_group_statistics_kernel_past_256_slots(cuda, dt, c):
+    """16-byte loads with more slots a pixel row than threads (bf16 4096:
+    512 slots), and a row's moments past 48 KB of shared memory (fp32 6400
+    by scalar loads through a view off 16 bytes)."""
+    rng = np.random.RandomState(c)
+    x = torch.from_numpy(rng.randn(2, 5, 7, c).astype(np.float32) * 0.5 + 30.0).to(cuda)
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.1).to(cuda)
+    offset = 0 if dt == torch.bfloat16 else 1
+    buf = torch.empty(x.numel() + offset, dtype=dt, device=cuda)
+    buf[offset:] = x.to(dt).reshape(-1)
+    xv = buf[offset:].view(x.shape)
+    assert tgc.stats_plan(35, c, dt, xv.data_ptr() % 16 == 0)[2] == (8 if offset == 0 else 1)
+    _stats_against_float64(xv, scale, bias, 32)
 
 
 def test_fused_resnet_block_keeps_k4_params_until_the_weights_change(cuda):

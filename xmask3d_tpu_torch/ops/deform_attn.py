@@ -6,6 +6,9 @@ Counterpart of `xmask3d_tpu/ops/deform_attn.py`:
 
 with grid_sample(align_corners=False, padding_mode="zeros") semantics; a
 sample whose corner (floor(x), floor(y)) lies outside [-1, size) is zero.
+bf16 head dims of 8 times a power of two (up to 256) take the vector
+kernel, 16-byte gathers with lanes over (sample, 8-channel slice); fp32 and
+the other widths the scalar one, lanes over channels (`kernel_plan`).
 """
 
 from __future__ import annotations
@@ -54,6 +57,31 @@ def ms_deform_attn_reference(
     return out.reshape(b, lq, heads * d).to(value.dtype)
 
 
+VEC_LANES = (1, 2, 4, 8, 16, 32)  # lanes a value row: d / 8
+UNROLLED = (32, 3, 4)  # the pixel decoder's head dim, levels and points: unrolled
+
+
+def kernel_plan(dtype: torch.dtype, d: int, n_levels: int, n_points: int,
+                aligned: bool = True) -> Tuple[str, int, bool]:
+    """(variant name, lanes a value row or 0 for the scalar kernel, unrolled)
+    of the kernel a call takes. bf16 with d / 8 a power of two up to 32 and
+    value aligned to 16 bytes runs the vector kernel, with everything
+    unrolled at the pixel decoder's d = 32, 3 levels x 4 points; all else
+    the scalar kernel."""
+    lr = d // 8
+    if dtype != torch.bfloat16 or d % 8 or lr not in VEC_LANES or not aligned:
+        return f"scalar_{'bf16' if dtype == torch.bfloat16 else 'fp32'}", 0, False
+    unrolled = (d, n_levels, n_points) == UNROLLED
+    return f"vec_d{d}_{'l3p4' if unrolled else 'any'}", lr, unrolled
+
+
+def variant(value: torch.Tensor, loc: torch.Tensor) -> str:
+    """The variant `ms_deform_attn(value, shapes, loc, aw)` launches on the
+    card: a pure function of shapes, dtype and value's alignment."""
+    return kernel_plan(value.dtype, value.shape[3], loc.shape[3], loc.shape[4],
+                       value.data_ptr() % 16 == 0)[0]
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -86,9 +114,13 @@ def ms_deform_attn(
     out = torch.empty((b, lq, heads * d), dtype=value.dtype, device=value.device)
     shapes = (ctypes.c_int * (2 * n_lv))(*[int(x) for hw in spatial_shapes for x in hw])
     lib = _build.load("deform_attn")
-    fn = lib.xm_deform_attn_bf16 if value.dtype == torch.bfloat16 else lib.xm_deform_attn_f32
-    err = fn(_build.ptr(value), _build.ptr(loc), _build.ptr(aw), _build.ptr(out), shapes,
-             b, lq, heads, d, n_lv, npts, s_total, _build.stream(value.device))
+    args = (_build.ptr(value), _build.ptr(loc), _build.ptr(aw), _build.ptr(out), shapes,
+            b, lq, heads, d, n_lv, npts, s_total)
+    if value.dtype == torch.bfloat16:
+        _, lr, unrolled = kernel_plan(value.dtype, d, n_lv, npts, value.data_ptr() % 16 == 0)
+        err = lib.xm_deform_attn_bf16(*args, lr, int(unrolled), _build.stream(value.device))
+    else:
+        err = lib.xm_deform_attn_f32(*args, _build.stream(value.device))
     _build.check(err, "ms_deform_attn")
     ms_deform_attn.launches += 1
     return out
@@ -98,10 +130,10 @@ ms_deform_attn.launches = 0
 
 
 def _bind(lib):
-    for name in ("xm_deform_attn_f32", "xm_deform_attn_bf16"):
+    for name, ints in (("xm_deform_attn_f32", 7), ("xm_deform_attn_bf16", 9)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 

@@ -41,8 +41,22 @@ Phases, each of which raises on failure:
      every kernel's launches (K4's statistics once per conv), that every
      bf16 K4 call took a tensor-core variant, the votes, the fill and the
      summaries;
-  6. the tiny model on the card (fp32, kernels) against the same model on
-     the CPU (plain versions), unfused and with `fused_gn`.
+  6. training at full width (`train_phase`): the serving models freed, the
+     B15N4 model built for training (bf16 parameters, fp32 AdamW masters of
+     the trainable groups, SD and CLIP frozen) and driven through the
+     trainer's train step on synthetic batches of two views. A warm-up step
+     records every kernel call of its forward pass, which are held against
+     their plain versions (bf16 and fp32); one call of each kernel is taken
+     back through its autograd Function and held against the plain
+     version's autograd on the same inputs; three counted steps check the
+     launches a step, the variants, every loss, each trainable group's
+     gradient (both 3D UNets apart), that no frozen parameter has a
+     gradient, and that the masters and the BatchNorm statistics moved;
+     a profiled step gives the device's busy time and each kernel's forward
+     and plain-backward device ms;
+  7. the tiny model on the card (fp32, kernels) against the same model on
+     the CPU (plain versions), unfused and with `fused_gn`, and one training
+     step of it, losses and gradients leaf by leaf.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it is the `kernels` JSON object, and the one before that the
@@ -172,7 +186,7 @@ def _clone(x):
     import torch
 
     if torch.is_tensor(x):
-        return x.clone()
+        return x.detach().clone()
     return copy.deepcopy(x)
 
 
@@ -866,6 +880,368 @@ def scene_phase(cfg, caps, table) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+# a training step: two views of the bench's capacities, 20000 points each
+TRAIN_BATCH, TRAIN_STEPS = 2, 3
+# the wrappers' autograd Functions, by the name of their backward nodes
+BACKWARD_NODES = {"sparse_conv": "_SparseConvBackward", "flash_attention": "_AttentionBackward",
+                  "deform_attn": "_DeformAttnBackward", "gn_silu_conv": "_GnSiluConvBackward"}
+# the tiny training step, card against CPU: loss terms as the train golden;
+# gradients leaf by leaf as tests/test_torch_train.py holds the port to the
+# JAX package (the model's gradient jumps where a bilinear sample crosses a
+# pixel centre or a ReLU input crosses zero, so ~1e-6 apart in the forward
+# moves a leaf by up to a few percent), and the attention key biases, whose
+# gradient is zero in exact arithmetic, absolutely
+TRAIN_TOL = {"loss": 2e-4, "grad_l2": 1e-2, "grad_max": 3e-2, "grad_zero": 1e-6, "stats": 1e-5}
+
+
+def train_batch(cfg, caps, seed, device=None):
+    """A synthetic training batch of TRAIN_BATCH views at full size. Its
+    base/novel labels are drawn per point, so no mask would be novel- or
+    base-dominant and loss_3d_contra would be 0: view 0 is made all novel
+    and the others all base, so the term carries gradient."""
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+
+    b = synthetic_batch(TRAIN_BATCH, caps, seed=seed, num_points=20000, image_size=(512, 512),
+                        mask_shape=tuple(cfg.mask_shape), context_length=77, vocab_size=49408,
+                        device=device)
+    b["binary_label_3d"][0] = 0.0
+    b["binary_label_3d"][1:] = 1.0
+    return b
+
+
+def pick_backward_call(name, calls):
+    """The recorded call of each kernel whose backward is checked: K1's
+    first 27-tap conv with a live-row mask, K2's longest self-attention of
+    the narrowest heads (the SD UNet's 4096 tokens at d 40), K3's first
+    call."""
+    if name == "sparse_conv":
+        return next(c for c in calls if c[4] is not None and c[1].shape[0] == 27)
+    if name == "flash_attention":
+        return max(calls, key=lambda c: (c[0].shape[2] == c[1].shape[2], c[1].shape[2],
+                                         -c[0].shape[3]))
+    return calls[0]
+
+
+def backward_check(table, name, call, dtype):
+    """The call's kernel output taken back through the wrapper's Function
+    under a seeded cotangent, against torch.autograd.grad of the plain
+    version on the same inputs: (max abs error, worst error / tolerance)."""
+    import torch
+
+    k = table[name]
+    tol = TOL[dtype]
+    if dtype == "fp32":
+        call = as_fp32(call)
+    diff = [i for i, a in enumerate(call) if torch.is_tensor(a) and a.is_floating_point()]
+
+    def run(fn):
+        args = [a.detach().clone().requires_grad_() if i in diff else a
+                for i, a in enumerate(call)]
+        return fn(*args), [args[i] for i in diff]
+
+    n = k["fn"].launches
+    out, xs = run(k["fn"])
+    gen = torch.Generator(device=out.device).manual_seed(0)
+    ct = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    got = torch.autograd.grad(out, xs, ct)
+    ref_out, ys = run(k["plain"])
+    ref = torch.autograd.grad(ref_out, ys, ct)
+    torch.cuda.synchronize()
+    if k["fn"].launches != n + 1:
+        raise AssertionError(f"{name}: the backward launched the kernel")
+    err, worst = 0.0, 0.0
+    for g, r in zip(got, ref):
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name} ({dtype}): non-finite gradient")
+        e = float((g.float() - r.float()).abs().max())
+        err = max(err, e)
+        worst = max(worst, e / (tol * max(1.0, float(r.float().abs().max()))))
+    return err, worst
+
+
+def group_norms(model, labels, store):
+    """An optimizer step that first stores each trainable group's gradient
+    norm, both 3D UNets apart, and the names of frozen parameters holding a
+    gradient."""
+    import torch
+
+    def norms():
+        groups = {"pc_decoder": [], "pc_binary_head": [], "others": []}
+        frozen = []
+        for n, p in model.named_parameters():
+            if labels[n] == "frozen":
+                if p.grad is not None:
+                    frozen.append(n)
+                continue
+            if p.grad is not None:
+                groups[n.split(".")[0] if labels[n] == "3d" else "others"].append(p.grad.float())
+        out = {g: float(torch.nn.utils.get_total_norm(v)) if v else 0.0
+               for g, v in groups.items()}
+        store.append({"grad_norm": out, "frozen_with_grad": frozen})
+    return norms
+
+
+def profile_step(step_fn) -> dict:
+    """One more training step under torch.profiler: device busy ms and idle
+    share, kernels, and per kernel the device ms of its forward launches
+    and of its plain backward (the device work under the Function's
+    backward node)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = prof.events()
+    # the card's kernels and copies; not the optimizer's annotation ranges
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    prefixes = {"sparse_conv": "sparse_conv_", "flash_attention": "flash_",
+                "deform_attn": "deform_attn_"}
+    forward = {k: sum((stop - start) / 1e3 for start, stop, n in spans if p in n)
+               for k, p in prefixes.items()}
+    by_name = {}
+    for start, stop, n in spans:
+        by_name[n] = by_name.get(n, 0.0) + (stop - start) / 1e3
+    def kernels_under(e):
+        return len(e.kernels) + sum(kernels_under(c) for c in e.cpu_children)
+
+    backward = {k: {"device_ms": 0.0, "calls": 0, "kernels": 0} for k in prefixes}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("autograd::engine::evaluate"):
+            for k in prefixes:
+                if BACKWARD_NODES[k] in e.name:
+                    backward[k]["device_ms"] += e.device_time_total / 1e3
+                    backward[k]["calls"] += 1
+                    backward[k]["kernels"] += kernels_under(e)
+    return {"phase": "train_profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
+            "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "forward_device_ms": forward, "plain_backward": backward,
+            "top": [[n[:80], ms] for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def train_phase(cfg, caps, table) -> None:
+    """Full-width B15N4 training on the card through the trainer's pieces
+    (the training build, `make_optimizer`, `make_train_step`); raises on any
+    failed check."""
+    import math
+
+    import torch
+
+    from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+    from xmask3d_tpu_torch.engine.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+    from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm
+
+    t0 = time.time()
+    model = build_train_model(cfg, seed=0)
+    mc = model.cfg
+    statics = build_statics(model, cfg)
+    labels = label_tree(model)
+    state = create_train_state(model, make_optimizer(model, cfg.lr_3d, cfg.lr_others, 1000,
+                                                     schedule=cfg.learning_rate_type,
+                                                     power=cfg.power), seed=0)
+    step = make_train_step(dict(cfg.loss_weight))
+    batches = [train_batch(cfg, caps, seed=300 + i) for i in range(TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    trainable = {g: sum(p.numel() for n, p in model.named_parameters() if labels[n] == g)
+                 for g in ("3d", "others", "frozen")}
+    log({"phase": "train_setup", "seconds": time.time() - t0, "batch": TRAIN_BATCH,
+         "params": trainable, "param_dtype": str(mc.dtype),
+         "live_voxels": [[int(n) for n in b["hierarchy"].levels[0].num] for b in batches],
+         "live_points": [int(b["point_valid"].sum()) for b in batches],
+         "targets": [int(b["target_valid"].sum()) for b in batches]})
+    expected = expected_launches(mc)
+    if expected["gn_silu_conv"]:
+        raise AssertionError("the training step runs the VAE unfused (fused_gn off)")
+
+    # warm-up step, recording every kernel call of its forward pass
+    calls = {name: [] for name, n in expected.items() if n}
+    reset_launches()
+    with recording(calls):
+        t0 = time.time()
+        metrics = step(state, batches[0], statics, 1.0)
+        torch.cuda.synchronize()
+    log({"phase": "train_warmup_step", "ms": (time.time() - t0) * 1e3, "launches": launches(),
+         "loss_total": float(metrics["loss_total"])})
+    del metrics
+    for name, n in expected.items():
+        if len(calls.get(name, ())) != n or launches()[name] != n:
+            raise AssertionError(f"{name}: {len(calls.get(name, ()))} calls, {launches()[name]} "
+                                 f"launches in the warm-up step, expected {n}")
+    for name, cs in calls.items():
+        k = table[name]
+        for dtype in ("bf16", "fp32"):
+            cd = cs if dtype == "bf16" else [as_fp32(c) for c in cs]
+            err, worst, at, _, outs = max_err(k["fn"], k["plain"], cd, TOL[dtype])
+            del outs
+            b_err, b_worst = backward_check(table, name, pick_backward_call(name, cs), dtype)
+            log({"phase": "train_kernel_check", "kernel": name, "dtype": dtype, "calls": len(cd),
+                 "max_abs_err": err, "worst_err_over_tol": worst, "worst_call": at,
+                 "backward_max_abs_err": b_err, "backward_worst_err_over_tol": b_worst,
+                 "tol": f"{TOL[dtype]} * max(1, max |plain|)"})
+            if not (worst <= 1.0 and b_worst <= 1.0):
+                raise AssertionError(f"{name} ({dtype}): forward {worst}x, backward {b_worst}x "
+                                     "its tolerance")
+            torch.cuda.empty_cache()
+    del calls
+    torch.cuda.empty_cache()
+
+    # the counted steps
+    masters = {g: [m.detach().clone() for m in ms]
+               for g, ms in state.optimizer.masters().items()}
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    stats = [(m.mean.clone(), m.var.clone()) for m in bns]
+    norms = []
+    real_step = state.optimizer.step
+    collect = group_norms(model, labels, norms)
+
+    def step_with_norms(s):
+        collect()
+        real_step(s)
+
+    state.optimizer.step = step_with_norms
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, variants, step_metrics = [], {}, []
+    with counting_variants(table, variants):
+        for b in batches[1:1 + TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            step_metrics.append(step(state, b, statics, 1.0))
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+    state.optimizer.step = real_step
+    losses = [{k: float(v) for k, v in m.items() if not k.startswith("metric_")}
+              for m in step_metrics]
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    log({"phase": "train_steps", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "step_ms": step_ms,
+         "mean_step_ms": sum(step_ms) / TRAIN_STEPS, "peak_bytes": peak, "launches": counts,
+         "expected_per_step": expected, "variants": variants, "losses": losses,
+         "grad_norms": norms})
+    for name, n in expected.items():
+        if counts[name] != n * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {counts[name]} launches over {TRAIN_STEPS} steps, "
+                                 f"expected {n * TRAIN_STEPS}")
+    check_variants(variants, expected, TRAIN_STEPS)
+    for i, (ls, nm) in enumerate(zip(losses, norms)):
+        bad = [k for k, v in ls.items() if not math.isfinite(v)]
+        if bad or "loss_3d_contra" not in ls:
+            raise AssertionError(f"step {i}: non-finite or missing losses {bad}")
+        bad = [g for g, v in nm["grad_norm"].items() if not (math.isfinite(v) and v > 0)]
+        if bad or nm["frozen_with_grad"]:
+            raise AssertionError(f"step {i}: gradient norms {nm['grad_norm']}, frozen parameters "
+                                 f"with a gradient {nm['frozen_with_grad'][:5]}")
+    if not any(ls["loss_3d_contra"] > 0 for ls in losses):
+        raise AssertionError("loss_3d_contra was 0 in every step: it carried no gradient")
+    moved = {g: sum(not torch.equal(a, b) for a, b in zip(ms, masters[g]))
+             for g, ms in state.optimizer.masters().items()}
+    bn_moved = sum(not torch.equal(m.mean, a) and not torch.equal(m.var, v)
+                   for m, (a, v) in zip(bns, stats))
+    log({"phase": "train_updates", "masters_moved": moved,
+         "masters": {g: len(ms) for g, ms in masters.items()},
+         "batchnorms_moved": bn_moved, "batchnorms": len(bns)})
+    if not all(moved.values()) or bn_moved != len(bns):
+        raise AssertionError(f"masters moved {moved}, BatchNorms moved {bn_moved} of {len(bns)}")
+    del masters, stats, step_metrics
+
+    log(profile_step(lambda: step(state, batches[-1], statics, 1.0)))
+    del model, state, statics, batches
+    torch.cuda.empty_cache()
+
+
+def tiny_train_check(cfg_path) -> dict:
+    """The tiny fp32 model (the CPU tests' reduced one) one training step on
+    the card (kernels) against the CPU (plain versions), the same weights,
+    batch and point draws: every loss term, the IoU histograms, each
+    trainable leaf's gradient and the BatchNorm running statistics, within
+    TRAIN_TOL."""
+    import numpy as np
+    import torch
+
+    from xmask3d_tpu_torch.config import load_config
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+    from xmask3d_tpu_torch.engine.train_step import weight_losses
+    from xmask3d_tpu_torch.ops.point_sample import point_draws
+
+    cfg = load_config(cfg_path)
+    cfg.update(arch_3d="MinkUNet14A", arch_binary_head="MinkUNet14A", mask_shape=[24, 32],
+               compute_dtype="float32", dec_layers=2, pixel_enc_layers=2)
+    caps = Capacities(max_points=512, max_voxels=256, max_targets=8)
+    cpu = build_train_model(cfg, tiny=True, seed=1, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    draws = point_draws(torch.Generator().manual_seed(0), cpu.cfg.dec_layers + 1, 2, 8,
+                        cpu.cfg.num_points)
+    reset_launches()
+    results = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        b = synthetic_batch(2, caps, seed=3, num_points=400, image_size=(128, 128),
+                            mask_shape=(24, 32), context_length=16, vocab_size=512, device=dev)
+        b["binary_label_3d"][0] = 0.0
+        b["binary_label_3d"][1] = 1.0
+        statics = build_statics(model, cfg, device=dev)
+        losses, _ = model(b, statics, train=True, draws=_to(draws, dev))
+        weight_losses(losses, dict(cfg.loss_weight), contra_on=1.0).backward()
+        results[name] = (
+            {k: v.detach().cpu() for k, v in losses.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+            {n: x.detach().cpu() for n, x in model.named_buffers()})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = results["cpu"], results["cuda"]
+    report, bad = {"phase": "reference_tiny_fp32_train", "launches": launches()}, []
+    for k, want in l_cpu.items():
+        got = l_gpu[k]
+        if k.startswith("metric_"):  # an argmax near a tie may flip: reported only
+            report[k + "_points_apart"] = float((got - want).abs().sum())
+            continue
+        err = float((got - want).abs().max())
+        report[k] = err
+        if not err <= TRAIN_TOL["loss"] * max(1.0, float(want.abs().max())):
+            bad.append(f"{k}: {err}")
+    labels = label_tree(cpu)
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst_l2, worst_max = 0.0, 0.0
+    if set(g_cpu) != set(g_gpu) or any(labels[n] == "frozen" for n in g_cpu):
+        bad.append("the two runs have gradients on different or frozen parameters")
+    for n, want in g_cpu.items():
+        got = g_gpu[n]
+        if n.endswith("k_proj.bias"):
+            if max(float(got.abs().max()), float(want.abs().max())) > TRAIN_TOL["grad_zero"] * top:
+                bad.append(f"{n}: not zero")
+            continue
+        l2 = float((got - want).norm() / want.norm().clamp(min=1e-30))
+        mx = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        worst_l2, worst_max = max(worst_l2, l2), max(worst_max, mx)
+        if not (l2 <= TRAIN_TOL["grad_l2"] and mx <= TRAIN_TOL["grad_max"]):
+            bad.append(f"{n}: L2 {l2}, max {mx}")
+    report.update({"grad_leaves": len(g_cpu), "worst_grad_l2": worst_l2,
+                   "worst_grad_max": worst_max, "tolerances": TRAIN_TOL})
+    for n, want in s_cpu.items():
+        if not np.isclose(float((s_gpu[n] - want).abs().max()), 0.0, atol=TRAIN_TOL["stats"]):
+            bad.append(f"running statistic {n}")
+    if any(report["launches"][k] == 0 for k in ("sparse_conv", "flash_attention", "deform_attn")):
+        bad.append(f"a kernel did not launch: {report['launches']}")
+    if bad:
+        log(report)
+        raise AssertionError("tiny training step: " + "; ".join(bad[:10]))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -995,8 +1371,11 @@ def main() -> int:
     rows.append(scene_phase(cfg, caps, table))
     torch.cuda.empty_cache()
 
+    train_phase(cfg, caps, table)
+
     log(reference_check(CONFIG))
     log(reference_check(CONFIG, fused_gn=True))
+    log(tiny_train_check(CONFIG))
 
     print(card, flush=True)
     log({"kernels": rows})

@@ -144,6 +144,24 @@ def test_scene_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert all(len(p) == len(scene["coords"]) for p in pred.values())
 
 
+def test_train_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The trainer's `main`, the training build and its data stream follow
+    the device rule."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.engine import builder, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(ROOT, "configs/scannet/xmask3d_scannet_B15N4.yaml")
+    cfg = load_config(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--config", config, "--synthetic", "--tiny", "--save_path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        builder.build_train_model(cfg, tiny=True)
+    data, _, _ = train.make_data_iter(cfg, Capacities(64, 32, 4), synthetic=True, tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(data)
+
+
 def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -345,7 +363,10 @@ def _pairs():
         (jp.MSDeformAttnLayer(d_model=16, heads=2, points=2, levels=2, ffn_dim=32),
          (src, pos, ref, shapes),
          tp.MSDeformAttnLayer(16, 2, 2, 2, 32), (src, pos, ref, shapes)),
-        (jm.MaskedBatchNorm(), (feats, valid, False), tm.MaskedBatchNorm(8), (feats, valid)),
+        # eval mode on both sides: the running statistics (the port's
+        # module has a train mode too, the default of a new torch module)
+        (jm.MaskedBatchNorm(), (feats, valid, False), tm.MaskedBatchNorm(8).eval(),
+         (feats, valid)),
     ]
 
 

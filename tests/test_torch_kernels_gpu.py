@@ -412,3 +412,154 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     wk, bf = tgc.kernel_params(w, v[:16], torch.float32)
     with pytest.raises(ValueError, match="kernel_params"):
         tgc.gn_silu_conv(x, v, v, w, v[:16], params=(wk.bfloat16(), bf))
+
+
+# --------------------------------------------------------------------------
+# backward: each wrapper's autograd Function against its plain version's
+# autograd on the same CUDA inputs (the Function's backward recomputes that
+# version, so the two differ only by the order of atomic adds)
+# --------------------------------------------------------------------------
+
+
+def _noncontig(t):
+    """`t` as a non-contiguous view with the same values."""
+    wide = torch.zeros(t.shape[:-1] + (2 * t.shape[-1],), dtype=t.dtype, device=t.device)
+    wide[..., ::2] = t
+    view = wide[..., ::2]
+    assert not view.is_contiguous()
+    return view
+
+
+def _backward_close(fn, plain, diff, call, tol, seed=0):
+    """Gradients of call(fn, *diff) and call(plain, *diff) for every tensor
+    of `diff` under one seeded, non-contiguous cotangent; the kernel runs
+    once in the forward and not at all in the backward."""
+    xs = [x.detach().clone().requires_grad_() for x in diff]
+    ys = [x.detach().clone().requires_grad_() for x in diff]
+    n = fn.launches
+    out = call(fn, *xs)
+    assert fn.launches == n + 1 and out.grad_fn is not None
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    ct = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    out.backward(_noncontig(ct))
+    assert fn.launches == n + 1
+    call(plain, *ys).backward(ct)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        got, ref = x.grad.float(), y.grad.float()
+        assert torch.isfinite(got).all(), i
+        err = float((got - ref).abs().max())
+        assert err <= tol * max(1.0, float(ref.abs().max())), (i, err)
+
+
+@pytest.mark.parametrize("kernel,cin,cout", [(3, 96, 128), (5, 3, 64)])
+def test_sparse_conv_backward(cuda, kernel, cin, cout):
+    """B = 2, with bias and out_valid: feats, weights and bias."""
+    rng = np.random.RandomState(11)
+    hs = [tsc.build_hierarchy(np.unique(rng.randint(0, 24, size=(3000, 3)).astype(np.int32),
+                                        axis=0), (4096, 2048, 1024, 512, 256)) for _ in range(2)]
+    h = tsc.stack_hierarchies(hs, cuda)
+    kmap = h.kmap5 if kernel == 5 else h.levels[0].kmap3
+    valid = h.levels[0].valid
+    feats = torch.from_numpy(rng.randn(2, 4096, cin).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(kmap.shape[1], cin, cout) / 8).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda)
+    for dt, tol in DTYPES:
+        _backward_close(
+            tsc.sparse_conv, tsc.sparse_conv_reference, (feats.to(dt), w.to(dt), bias.to(dt)),
+            lambda f, x, wt, b: f(x, wt, kmap, bias=b, out_valid=valid), tol)
+
+
+@pytest.mark.parametrize("tq,tk,d,h", [(4096, 4096, 40, 8), (4096, 77, 40, 8)])
+def test_flash_attention_backward(cuda, tq, tk, d, h):
+    """The SD UNet's self-attention (d 40 x 4096 keys) and its 77-key
+    cross-attention, B = 2: q, k and v."""
+    rng = np.random.RandomState(tk)
+    q, k, v = (torch.from_numpy(rng.randn(2, h, t, d).astype(np.float32)).to(cuda)
+               for t in (tq, tk, tk))
+    for dt, tol in DTYPES:
+        _backward_close(tfa.attention, tfa.reference_attention, (q.to(dt), k.to(dt), v.to(dt)),
+                        lambda f, *a: f(*a), tol)
+        torch.cuda.empty_cache()
+
+
+def test_deform_attn_backward(cuda):
+    """The pixel decoder's shape at B = 2, samples partly outside the maps:
+    value, locations and weights."""
+    rng = np.random.RandomState(12)
+    shapes = [(64, 64), (32, 32), (16, 16)]
+    n = sum(a * b for a, b in shapes)
+    value = torch.from_numpy(rng.randn(2, n, 8, 32).astype(np.float32)).to(cuda)
+    loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (2, 5376, 8, 3, 4, 2)).astype(np.float32)).to(cuda)
+    aw = torch.from_numpy(rng.rand(2, 5376, 8, 3, 4).astype(np.float32)).to(cuda)
+    for dt, tol in DTYPES:
+        _backward_close(tda.ms_deform_attn, tda.ms_deform_attn_reference, (value.to(dt), loc, aw),
+                        lambda f, v, l, a: f(v, shapes, l, a), tol)
+
+
+def test_gn_silu_conv_backward(cuda):
+    """A VAE stage's widths at B = 2: x, the norm's scale and bias, the conv
+    weight and bias."""
+    rng = np.random.RandomState(13)
+    c = cout = 128
+    x = torch.from_numpy(rng.randn(2, 32, 40, c).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(3, 3, c, cout) / 30).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda)
+    for dt, tol in DTYPES:
+        _backward_close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference,
+                        (x.to(dt), scale, bias, w, b), lambda f, *a: f(*a, groups=32), tol)
+
+
+def test_tiny_training_step_on_the_card(cuda):
+    """One fp32 training step of the tiny model on the card: every loss
+    finite, K1-K3 launched in the forward and none in the backward, a finite
+    non-zero gradient for both 3D UNets and the other trainable group, none
+    for a frozen parameter, and the optimizer moving the parameters."""
+    import os
+
+    from xmask3d_tpu_torch.config import load_config
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+    from xmask3d_tpu_torch.engine.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs/scannet/xmask3d_scannet_B15N4.yaml"))
+    cfg.update(arch_3d="MinkUNet14A", arch_binary_head="MinkUNet14A", mask_shape=[24, 32],
+               compute_dtype="float32", dec_layers=2, pixel_enc_layers=2)
+    model = build_train_model(cfg, tiny=True, device=cuda)
+    statics = build_statics(model, cfg, device=cuda)
+    batch = synthetic_batch(2, Capacities(512, 256, 8), seed=0, num_points=400,
+                            image_size=(128, 128), mask_shape=(24, 32), context_length=16,
+                            vocab_size=512, device=cuda)
+    batch["binary_label_3d"][0] = 0.0  # one all-novel and one all-base view: contra is live
+    batch["binary_label_3d"][1] = 1.0
+    state = create_train_state(model, make_optimizer(model, 1e-3, 1e-4, 10))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    kernels = (tsc.sparse_conv, tfa.attention, tda.ms_deform_attn)
+    counts = [k.launches for k in kernels]
+    grads = {}
+    real_step = state.optimizer.step
+
+    def keep_grads(step):
+        for n, p in model.named_parameters():
+            grads[n] = None if p.grad is None else p.grad.detach().clone()
+        real_step(step)
+
+    state.optimizer.step = keep_grads
+    metrics = make_train_step(dict(cfg.loss_weight))(state, batch, statics, 1.0)
+    assert all(k.launches > c for k, c in zip(kernels, counts))
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    labels = label_tree(model)
+    for prefix in ("pc_decoder.", "pc_binary_head.", "mask_decoder."):
+        g = [grads[n] for n in grads if n.startswith(prefix) and grads[n] is not None]
+        norm = float(torch.linalg.vector_norm(torch.stack([x.norm() for x in g])))
+        assert g and np.isfinite(norm) and norm > 0, prefix
+    assert all(grads[n] is None for n in grads if labels[n] == "frozen")
+    moved = [n for n, p in model.named_parameters() if labels[n] != "frozen"
+             and not torch.equal(p, before[n])]
+    assert moved and all(torch.equal(p, before[n]) for n, p in model.named_parameters()
+                         if labels[n] == "frozen")

@@ -63,17 +63,26 @@ def pack_targets(label_2d: np.ndarray, max_targets: int):
     return labels, labels >= 0
 
 
-def collate_views(samples: List[ViewSample], caps: Capacities, device=None) -> Dict[str, Any]:
+def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
+                  grid_jitter_rng=None) -> Dict[str, Any]:
     """Pad and stack view samples into a fixed-shape batch of tensors on
-    `device` (the GPU unless "cpu" is asked for)."""
+    `device` (the GPU unless "cpu" is asked for). `grid_jitter_rng` (a numpy
+    RandomState; training only) shifts the whole batch's voxel coords by
+    one integer translation in [0, 16) a batch, which re-draws which voxels
+    pool together at every stride, as the JAX package does."""
     device = resolve_device(device)
+    jitter = None if grid_jitter_rng is None \
+        else grid_jitter_rng.randint(0, 16, size=(1, 3)).astype(np.int32)
     p, v = caps.max_points, caps.max_voxels
     hs, vox_feats, point_valid, tgt_labels, tgt_valid = [], [], [], [], []
     fields: Dict[str, List[np.ndarray]] = {
         k: [] for k in ("inds_reconstruct", "labels_3d", "binary_label_3d", "x_label", "y_label")
     }
     for s in samples:
-        coords = np.clip(s.voxel_coords[:v].astype(np.int32), 0, 1023)
+        coords = s.voxel_coords[:v].astype(np.int32)
+        if jitter is not None:
+            coords = coords + jitter
+        coords = np.clip(coords, 0, 1023)
         hs.append(build_hierarchy(coords, caps.level_caps()))
         vox_feats.append(_pad1(s.voxel_feats.astype(np.float32), v))
         pv = np.zeros((p,), bool)

@@ -3,9 +3,9 @@
 
 What it carries over from the reference dataset stack:
 - Point3DLoader basics (dataset/point_loader.py): glob `{split}/*.pth`
-  scenes, `loop` epoch-length multiplier, voxelize. The training-time
-  augmentations (`aug`) and the train batch's grid jitter come with the
-  training slice.
+  scenes, `loop` epoch-length multiplier, voxelize, and the train batch's
+  grid jitter. The training-time augmentations (`aug`) are not carried
+  over: the loader refuses `aug=True`.
 - ScannetLoader (dataset/data_loader.py:15-316): per sample, load a scene,
   apply ScanNet200 remap when configured, train-time novel-category masking
   and label compaction, random-view sampling with the acceptance rule
@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from xmask3d_tpu_torch.data.batching import Capacities, ViewSample
+from xmask3d_tpu_torch.data.batching import Capacities, ViewSample, collate_views
 from xmask3d_tpu_torch.data.projection import get_scannet_mapper
 from xmask3d_tpu_torch.data.voxelizer import Voxelizer
 
@@ -107,7 +107,7 @@ class ScanNetViews:
     def __init__(self, cfg: ScanNetConfig, caps: Capacities, tokenizer, seed: int = 0):
         if cfg.aug:
             raise NotImplementedError(
-                "ScanNetConfig.aug: training-time augmentation comes with the training slice"
+                "ScanNetConfig.aug: the training-time augmentations are not ported"
             )
         self.cfg = cfg
         self.caps = caps
@@ -326,6 +326,13 @@ class ScanNetViews:
             if sample is not None:
                 return sample
         raise RuntimeError(f"no acceptable view for scene {index}")
+
+    def batch(self, indices: Sequence[int], device=None) -> Dict:
+        """The views of `indices` collated on `device`; the train split
+        draws one grid-alignment jitter a batch from the loader's rng."""
+        samples = [self.get(i) for i in indices]
+        jitter_rng = self.rng if self.cfg.split == "train" else None
+        return collate_views(samples, self.caps, device=device, grid_jitter_rng=jitter_rng)
 
 
 class ScanNetSceneViews(ScanNetViews):

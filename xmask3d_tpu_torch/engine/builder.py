@@ -1,7 +1,8 @@
-"""Model + statics construction.
+"""Model + statics construction, for serving and for training.
 
-Counterpart of `xmask3d_tpu/engine/builder.py`. `statics` are frozen
-constants fed to every forward:
+Counterpart of `xmask3d_tpu/engine/builder.py`, with the parameter groups
+of `xmask3d_tpu/engine/train_step.py` (`param_label`, `label_tree`).
+`statics` are frozen constants fed to every forward:
   text_embed_train: (L_train, 768) CLIP text bank of the train label names
   text_embed_test:  (L_test, 768) bank of all label names
   uncond_tokens:    (1, T) tokenized ""
@@ -39,8 +40,15 @@ def model_config_from_cfg(cfg: Config, tiny: bool = False, fused_gn: bool = Fals
         ldm=LDM_TINY if tiny else LDM_SD_V1,
         base_category=tuple(cfg.category_split.base_category),
         novel_category=tuple(cfg.category_split.novel_category),
+        ignore_category=tuple(cfg.category_split.ignore_category),
+        ignore_label=cfg.ignore_label,
+        data_ratio=cfg.data_ratio,
         binary_2d_thresh=cfg.binary_2d_thresh,
         scores_keep_thresh=cfg.scores_keep_thresh,
+        caption_contra=cfg.caption_contra,
+        caption_contra_2d_pre=cfg.caption_contra_2d_pre,
+        caption_contra_3d=cfg.caption_contra_3d,
+        mask_contra_3d=cfg.mask_contra_3d,
         dec_layers=cfg.get("dec_layers", 9),
         pixel_enc_layers=cfg.get("pixel_enc_layers", 6),
         dtype=dtype,
@@ -129,6 +137,44 @@ def build_model(cfg: Config, tiny: bool = False, seed: int = 0, device=None,
     for p in model.parameters():
         p.data = p.data.to(mc.dtype)
     return model
+
+
+# parameters that training leaves as they are: the SD towers and CLIP
+FROZEN_MARKERS = ("ldm_extractor/vae", "ldm_extractor/unet", "ldm_extractor/text_encoder",
+                  "ldm_extractor/shared_noise", "clip/")
+
+
+def param_label(path_keys) -> str:
+    """Optimizer group of a parameter from its path: "3d" (the 3D UNets),
+    "frozen" (SD VAE, UNet and text encoder, the shared noise, CLIP) or
+    "others". The JAX package's rule over the same path components."""
+    name = "/".join(str(k) for k in path_keys)
+    if "pc_decoder" in name or "pc_binary_head" in name:
+        return "3d"
+    if any(m in name for m in FROZEN_MARKERS) or name.startswith("clip"):
+        return "frozen"
+    return "others"
+
+
+def label_tree(model: nn.Module) -> Dict[str, str]:
+    """{dotted parameter name: group} for every parameter of the model."""
+    return {name: param_label(name.split(".")) for name, _ in model.named_parameters()}
+
+
+def build_train_model(cfg: Config, tiny: bool = False, seed: int = 0, device=None,
+                      fused_gn: bool = False) -> XMask3D:
+    """`build_model` set up for training: in train mode (which switches only
+    the BatchNorms to batch statistics) with the frozen group's parameters
+    excluded from autograd, so no gradient is computed for them while
+    gradients still flow through their activations (the JAX package's
+    `stop_gradient` on frozen leaves). Parameters stay in the compute dtype;
+    the optimizer keeps fp32 masters of the trainable ones
+    (`engine/train_step.py`)."""
+    model = build_model(cfg, tiny=tiny, seed=seed, device=device, fused_gn=fused_gn)
+    labels = label_tree(model)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    return model.train()
 
 
 def build_statics(model: XMask3D, cfg: Config, tokenizer=None, device=None

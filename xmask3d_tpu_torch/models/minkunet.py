@@ -25,20 +25,37 @@ def _zero_invalid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid voxels; eval normalises with the running stats.
-    Params `scale`/`bias` and buffers `mean`/`var` keep flax's names."""
+    """BatchNorm over the valid voxels of a (B, V, C) tensor. In training
+    mode it normalises with the batch's fp32 moments over valid voxels
+    (biased variance) and moves the fp32 running statistics by
+    `running = momentum * running + (1 - momentum) * batch`, with the
+    unbiased variance, as the JAX package does; in eval mode it normalises
+    with the running statistics. Params `scale`/`bias` and buffers
+    `mean`/`var` keep flax's names. One device: no cross-device sync."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        y = (x.float() - self.mean.float()) * inv + self.bias.float()
+        if self.training:
+            m = valid[..., None].float()
+            xf = x.float()
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(dim=(0, 1)) / cnt
+            var = ((xf * xf * m).sum(dim=(0, 1)) / cnt - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                unbiased = var * (cnt / (cnt - 1.0).clamp(min=1.0))
+                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        inv = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = (x.float() - mean) * inv + self.bias.float()
         return y.to(x.dtype)
 
 

@@ -1,11 +1,12 @@
-"""XMask3D top-level model: one view's eval forward.
+"""XMask3D top-level model: one view's eval forward and the training losses.
 
-Counterpart of `xmask3d_tpu/models/xmask3d.py` (eval path): the two sparse
-3D UNets (with their k5 stems fused into one conv), the SD feature backbone
+Counterpart of `xmask3d_tpu/models/xmask3d.py`: the two sparse 3D UNets
+(with their k5 stems fused into one conv), the SD feature backbone
 conditioned on the 3D global embedding, the MSDeformAttn pixel decoder, the
 ODISE mask decoder, MaskCLIP, binary base/novel routing, the panoptic filter
-and the 2D -> 3D paint-and-fuse. Submodule names follow the JAX parameter
-tree, so `checkpoint/from_jax.py` maps weights mechanically.
+and the 2D -> 3D paint-and-fuse; `train_forward` adds the matcher and the
+loss stack. Submodule names follow the JAX parameter tree, so
+`checkpoint/from_jax.py` maps weights mechanically.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.losses import criterion as L
 from xmask3d_tpu_torch.losses.fuser import (
     FeatureMerger,
     paint_and_fuse,
     panoptic_mask_filter,
     project_masks_to_points,
 )
+from xmask3d_tpu_torch.losses.matcher import match_costs
 from xmask3d_tpu_torch.models.backbone import FeatureExtractorBackbone
 from xmask3d_tpu_torch.models.clip import build_clip
 from xmask3d_tpu_torch.models.layers import resize
@@ -30,7 +33,9 @@ from xmask3d_tpu_torch.models.ldm_extractor import LDM_SD_V1, LdmConfig
 from xmask3d_tpu_torch.models.mask_decoder import CategoryEmbed, ODISEMaskedTransformerDecoder
 from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, mink_unet
 from xmask3d_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
 from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
+from xmask3d_tpu_torch.utils.metrics import intersection_and_union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +51,22 @@ class XMask3DConfig:
     projection_dim: int = 768
     base_category: Sequence[int] = (0, 1, 2, 3, 4, 6, 7, 8, 10, 11, 13, 14, 15, 17, 18)
     novel_category: Sequence[int] = (5, 9, 12, 16)
+    ignore_category: Sequence[int] = (19, 20)
+    ignore_label: int = 15
+    data_ratio: float = 0.267
     binary_2d_thresh: float = 0.5
     scores_keep_thresh: float = 0.0
+    num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+    eos_coef: float = 0.1
+    class_weight: float = 2.0
+    mask_weight: float = 5.0
+    dice_weight: float = 5.0
+    caption_contra: bool = True
+    caption_contra_2d_pre: bool = True
+    caption_contra_3d: bool = True
+    mask_contra_3d: bool = True
     dec_layers: int = 9
     pixel_enc_layers: int = 6
     dtype: torch.dtype = torch.float32
@@ -161,6 +180,102 @@ class XMask3D(nn.Module):
 
     def embed_captions(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.clip.embed_text(tokens)[0]
+
+    def forward(self, batch, statics, train: bool = False, draws=None):
+        """(losses, outputs) of `train_forward` with `train`, else (None,
+        eval outputs)."""
+        if train:
+            return self.train_forward(batch, statics, draws)
+        return None, self.eval_forward(batch, statics)
+
+    # -- train forward -----------------------------------------------------
+    def train_forward(self, batch: Dict[str, Any], statics: Dict[str, torch.Tensor],
+                      draws: Dict[str, torch.Tensor]):
+        """The training losses of one batch, line by line after the JAX
+        package's `train_forward`. `draws` holds the step's uniform point
+        coordinates (`ops/point_sample.py` `point_draws`). Returns (losses,
+        outputs); `metric_*` entries are IoU histograms, not losses."""
+        c = self.cfg
+        outputs = self._trunk(batch, statics)
+        caption_embed = self.embed_captions(batch["caption_tokens"])
+        cat = self.category_embed(statics["text_embed_train"])
+        text_embed, null_embed = cat["text_embed"], cat["null_embed"]
+        logit_scale = outputs["logit_scale"]
+        layers = [outputs] + list(outputs["aux_outputs"])
+        for layer in layers:
+            layer["pred_logits"] = cal_pred_logits(layer["mask_embed"], text_embed, null_embed,
+                                                   layer["logit_scale"])
+
+        # targets from label_2d
+        tl, tv = batch["target_labels"], batch["target_valid"]
+        target_masks = (batch["label_2d"][:, None] == tl[:, :, None, None]).float() \
+            * tv[:, :, None, None]
+        num_masks = tv.sum().float().clamp(min=1.0)
+
+        # matcher of every layer: one host copy of all cost matrices
+        costs = torch.stack([
+            match_costs(layer["pred_logits"], layer["pred_masks"], tl, target_masks, tv,
+                        draws["matcher"][i], c.class_weight, c.mask_weight, c.dice_weight)
+            for i, layer in enumerate(layers)])
+        matches = linear_sum_assignment(costs)  # (layers, B, T)
+        losses: Dict[str, torch.Tensor] = {}
+        for i, layer in enumerate(layers):
+            suffix = "" if i == 0 else f"_{i - 1}"
+            losses[f"loss_ce{suffix}"] = L.loss_labels(layer["pred_logits"], tl, tv, matches[i],
+                                                       c.eos_coef)
+            losses[f"loss_mask{suffix}"], losses[f"loss_dice{suffix}"] = L.loss_masks(
+                layer["pred_masks"], target_masks, tv, matches[i], num_masks,
+                draws["over"][i], draws["refill"][i], c.num_points, c.importance_sample_ratio)
+
+        # MaskCLIP embeddings: only loss_contra reads them, and detached
+        with torch.no_grad():
+            clip_mask_embed = self._clip_mask_embed(outputs["images"], outputs["pred_masks"])
+        outputs["mask_embed_clip"] = clip_mask_embed
+        masks_mshape = resize(outputs["pred_masks"], c.mask_shape, (2, 3), "bilinear",
+                              antialias=False)
+
+        # panoptic filter (every query enters the claim: keep = score > 0),
+        # projection to points, paint and fuse
+        pv, xl, yl = batch["point_valid"], batch["x_label"], batch["y_label"]
+        with torch.no_grad():
+            scores = torch.softmax(outputs["pred_logits"].float(), dim=-1).amax(dim=-1)
+            final_masks, final_valid = panoptic_mask_filter(scores, masks_mshape, scores > 0)
+            mask_3d = project_masks_to_points(final_masks, xl, yl)
+        fused_out = paint_and_fuse(mask_3d, final_valid, outputs["mask_embed"],
+                                   outputs["pred_3d"], pv, self.fuser)
+        fused = fused_out["fused"]
+        outputs.update({"fused_pred_feature": fused, "2d_pred_feature": fused_out["feat_2d"],
+                        "pure3d_pred_feature": outputs["pred_3d"]})
+
+        losses.update(L.loss_exact(fused, outputs["pred_3d"], text_embed, null_embed,
+                                   logit_scale, batch["labels_3d"], pv, c.ignore_label))
+        # training-time IoU histograms of the fused prediction
+        with torch.no_grad():
+            train_pred = L.bank_logits(fused, text_embed, null_embed, 1.0).argmax(dim=-1)
+            inter, union, _ = intersection_and_union(
+                train_pred, batch["labels_3d"], c.num_classes, ignore_index=(c.ignore_label,),
+                valid=pv)
+        losses["metric_train_inter"] = inter
+        losses["metric_train_union"] = union
+
+        if c.mask_contra_3d:
+            with torch.no_grad():
+                raw_mask3d = torch.sigmoid(project_masks_to_points(masks_mshape, xl, yl)) >= 0.5
+            losses["loss_3d_contra"] = L.loss_contra(
+                raw_mask3d, masks_mshape, clip_mask_embed, outputs["pred_3d"],
+                batch["binary_label_3d"], pv)
+        if c.caption_contra:
+            losses["loss_explicit_contra"] = L.caption_cosine_loss(fused, pv, caption_embed)
+        if c.caption_contra_3d:
+            losses["loss_explicit_contra_3d"] = L.caption_cosine_loss(
+                outputs["pred_3d"], pv, caption_embed)
+        if c.caption_contra_2d_pre:
+            losses["loss_explicit_contra_2d_pre"] = L.caption_cosine_loss(
+                fused_out["feat_2d"], pv & fused_out["covered"], caption_embed)
+        losses["loss_binary"] = L.binary_bce_loss(
+            outputs["binary_scores"], batch["binary_label_3d"], pv, c.ignore_category,
+            c.data_ratio)
+        return losses, outputs
 
     # -- eval forward ------------------------------------------------------
     @torch.no_grad()

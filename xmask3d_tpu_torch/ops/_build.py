@@ -150,6 +150,35 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def plain_vjp(plain: Callable, args: Tuple, needs: Iterable[bool], grad) -> Tuple:
+    """The backward of a kernel's autograd Function, as the JAX package takes
+    its kernels' backward through `custom_vjp`: recompute the plain version
+    `plain(*args)` on the saved inputs under autograd and return its VJP
+    with cotangent `grad`, one gradient (in the argument's dtype) for each
+    argument whose `needs` flag is set and None for the others. The
+    recompute is plain PyTorch: it records and launches no kernel, and its
+    graph is freed when this returns."""
+    import torch
+
+    needs = list(needs)
+    if not any(needs):
+        return (None,) * len(args)
+    xs = [a.detach().requires_grad_() if n else a for a, n in zip(args, needs)]
+    wrt = [x for x, n in zip(xs, needs) if n]
+    with torch.enable_grad():
+        out = plain(*xs)
+        grads = torch.autograd.grad(out, wrt, grad.contiguous(), allow_unused=True)
+    grads = iter(grads)
+    result = []
+    for x, n in zip(xs, needs):
+        if not n:
+            result.append(None)
+            continue
+        gx = next(grads)
+        result.append(torch.zeros_like(x) if gx is None else gx.to(x.dtype))
+    return tuple(result)
+
+
 def require_contiguous(what: str, *tensors) -> None:
     for t in tensors:
         if t is not None and not t.is_contiguous():

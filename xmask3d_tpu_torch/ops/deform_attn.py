@@ -8,7 +8,9 @@ with grid_sample(align_corners=False, padding_mode="zeros") semantics; a
 sample whose corner (floor(x), floor(y)) lies outside [-1, size) is zero.
 bf16 head dims of 8 times a power of two (up to 256) take the vector
 kernel, 16-byte gathers with lanes over (sample, 8-channel slice); fp32 and
-the other widths the scalar one, lanes over channels (`kernel_plan`).
+the other widths the scalar one, lanes over channels (`kernel_plan`). The
+wrapper is differentiable in value, locations and weights: its backward is
+the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -94,8 +96,8 @@ def ms_deform_attn(
         raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
     if value.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ms_deform_attn: unsupported dtype {value.dtype}")
-    b, s_total, heads, d = value.shape
-    _, lq, lh, n_lv, npts, two = sampling_locations.shape
+    b, s_total, heads, _ = value.shape
+    _, _, lh, n_lv, _, two = sampling_locations.shape
     if lh != heads or two != 2 or n_lv != len(spatial_shapes) \
             or attention_weights.shape != sampling_locations.shape[:5] \
             or sampling_locations.shape[0] != b:
@@ -109,8 +111,33 @@ def ms_deform_attn(
         raise TypeError("ms_deform_attn: locations and weights must be float32")
     _build.require_contiguous("ms_deform_attn", value, loc, aw)
     _build.record("deform_attn", value, spatial_shapes, loc, aw)
-    if value.device.type == "cpu":
-        return ms_deform_attn_reference(value, spatial_shapes, loc, aw)
+    return _DeformAttn.apply(value, tuple(spatial_shapes), loc, aw)
+
+
+class _DeformAttn(torch.autograd.Function):
+    """K3 with the plain version's VJP as its backward (the JAX package's
+    `_ms_deform_attn_hybrid`); the forward saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, aw):
+        ctx.save_for_backward(value, loc, aw)
+        ctx.spatial_shapes = spatial_shapes
+        if value.device.type == "cpu":
+            return ms_deform_attn_reference(value, spatial_shapes, loc, aw)
+        return _launch(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    def backward(ctx, g):
+        shapes = ctx.spatial_shapes
+        gv, gl, ga = _build.plain_vjp(
+            lambda v, l, a: ms_deform_attn_reference(v, shapes, l, a), ctx.saved_tensors,
+            (ctx.needs_input_grad[0], *ctx.needs_input_grad[2:]), g)
+        return gv, None, gl, ga
+
+
+def _launch(value, spatial_shapes, loc, aw) -> torch.Tensor:
+    b, s_total, heads, d = value.shape
+    _, lq, _, n_lv, npts, _ = loc.shape
     out = torch.empty((b, lq, heads * d), dtype=value.dtype, device=value.device)
     shapes = (ctypes.c_int * (2 * n_lv))(*[int(x) for hw in spatial_shapes for x in hw])
     lib = _build.load("deform_attn")

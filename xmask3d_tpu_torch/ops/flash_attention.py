@@ -5,6 +5,7 @@ Counterpart of `xmask3d_tpu/ops/flash_attention.py`. Non-causal, unmasked
 shape goes to the kernel (the ragged key edge is masked there); on a CPU
 tensor the plain version runs. `variant` names the kernel a call takes, from
 its shapes and dtype alone: bf16 runs on the tensor cores, fp32 on CUDA cores.
+The wrapper is differentiable: its backward is the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -68,15 +69,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         )
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
         raise ValueError("attention: q, k, v must share dtype and device")
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if tk == 0:
+    if k.shape[2] == 0:
         raise ValueError("attention: no keys")
-    _, dp, single = kernel_plan(q.dtype, tk, d)
+    kernel_plan(q.dtype, k.shape[2], q.shape[3])  # raises on an unsupported head dim
     _build.require_contiguous("attention", q, k, v)
     _build.record("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v)
+    return _Attention.apply(q, k, v)
+
+
+class _Attention(torch.autograd.Function):
+    """K2 with the plain version's VJP as its backward (the JAX package's
+    `_flash_diff`): the forward saves only q, k, v; the backward recomputes
+    the fp32 scores of one call and frees them when it returns."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return reference_attention(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.plain_vjp(reference_attention, ctx.saved_tensors,
+                                ctx.needs_input_grad, g)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    _, dp, single = kernel_plan(q.dtype, tk, d)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), b * h, tq, tk, d)

@@ -11,6 +11,8 @@ memory. Layout is the JAX contract: x (B, H, W, C), w HWIO (3, 3, C, C_out).
 The kernels take any shape (the statistics up to 29,055 channels, a pixel
 row's moments in shared memory), so there is no shape gate; on a CPU tensor
 the plain versions run (`affine_from_stats`, `gn_silu_conv_reference`).
+`gn_silu_conv` is differentiable in x, scale, bias, w and b: its backward is
+the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -183,8 +185,34 @@ def gn_silu_conv(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, w: to
         raise TypeError("gn_silu_conv: scale, bias, w and b must be floating point")
     _build.require_contiguous("gn_silu_conv", x)
     _build.record("gn_silu_conv", x, scale, bias, w, b, groups, eps)
-    if x.device.type == "cpu":
-        return gn_silu_conv_reference(x, scale, bias, w, b, groups, eps)
+    return _GnSiluConv.apply(x, scale, bias, w, b, groups, eps, params)
+
+
+class _GnSiluConv(torch.autograd.Function):
+    """K4 with the plain version's VJP as its backward (the JAX package's
+    `_gn_silu_conv_fused`): gradients for x, the norm's scale and bias and
+    the raw conv weight and bias; the prepared `params` (the kernel's
+    layout of w and b) take none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w, b, groups, eps, params):
+        ctx.save_for_backward(x, scale, bias, w, b)
+        ctx.groups, ctx.eps = groups, eps
+        if x.device.type == "cpu":
+            return gn_silu_conv_reference(x, scale, bias, w, b, groups, eps)
+        return _launch(x, scale, bias, w, b, groups, eps, params)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups, eps = ctx.groups, ctx.eps
+        grads = _build.plain_vjp(
+            lambda *a: gn_silu_conv_reference(*a, groups, eps), ctx.saved_tensors,
+            ctx.needs_input_grad[:5], g)
+        return (*grads, None, None, None)
+
+
+def _launch(x, scale, bias, w, b, groups, eps, params) -> torch.Tensor:
+    c, cout = x.shape[3], w.shape[3]
     bsz, h, wd, _ = x.shape
     if params is None:
         params = kernel_params(w, b, x.dtype)

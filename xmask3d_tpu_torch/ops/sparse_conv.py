@@ -7,7 +7,8 @@ table `kmap` (-1 = no neighbour); transposed convs are parent gathers.
 
 Kernel offsets enumerate with the last axis fastest; odd kernels span
 -(k//2)..k//2 per axis and kernel 2 spans {0, 1}, in units of the level's
-tensor stride.
+tensor stride. `sparse_conv` is differentiable in feats, weights and bias:
+its backward is the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -306,7 +307,7 @@ def sparse_conv(
         raise TypeError(f"sparse_conv: unsupported dtype {feats.dtype}")
     if feats.ndim != 3 or weights.ndim != 3 or kmap.ndim != 3:
         raise ValueError("sparse_conv: feats (B,V,C), weights (K,Ci,Co), kmap (B,K,V)")
-    b, v_in, c_in = feats.shape
+    b, _, c_in = feats.shape
     k, wc_in, c_out = weights.shape
     if wc_in != c_in or kmap.shape[0] != b or kmap.shape[1] != k:
         raise ValueError(
@@ -323,14 +324,41 @@ def sparse_conv(
     if out_valid is not None and (out_valid.shape != (b, v_out) or out_valid.dtype != torch.bool):
         raise ValueError("sparse_conv: out_valid must be bool (B, V_out)")
     _build.require_contiguous("sparse_conv", feats, weights, kmap, bias, out_valid)
-    bias_f = bias.float() if bias is not None else None
-    valid_u8 = out_valid.view(torch.uint8) if out_valid is not None else None
-    for t in (weights, kmap, bias_f, valid_u8):
+    for t in (weights, kmap, bias, out_valid):
         if t is not None and t.device != feats.device:
             raise ValueError("sparse_conv: all tensors must be on one device")
     _build.record("sparse_conv", feats, weights, kmap, bias, out_valid)
-    if feats.device.type == "cpu":
-        return sparse_conv_reference(feats, weights, kmap, bias, out_valid)
+    return _SparseConv.apply(feats, weights, bias, kmap, out_valid)
+
+
+class _SparseConv(torch.autograd.Function):
+    """K1 with the plain version's VJP as its backward (the JAX package's
+    `_spconv2_hybrid`): gradients for feats, weights and bias (in the
+    bias's own dtype, though the kernel reads it as fp32); the kernel map
+    and the output mask take none."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, bias, kmap, out_valid):
+        ctx.save_for_backward(feats, weights, bias, kmap, out_valid)
+        if feats.device.type == "cpu":
+            return sparse_conv_reference(feats, weights, kmap, bias, out_valid)
+        return _launch(feats, weights, kmap, bias, out_valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights, bias, kmap, out_valid = ctx.saved_tensors
+        grads = _build.plain_vjp(
+            lambda f, w, b: sparse_conv_reference(f, w, kmap, b, out_valid),
+            (feats, weights, bias), ctx.needs_input_grad[:3], g)
+        return (*grads, None, None)
+
+
+def _launch(feats, weights, kmap, bias, out_valid) -> torch.Tensor:
+    b, v_in, c_in = feats.shape
+    k, _, c_out = weights.shape
+    v_out = kmap.shape[2]
+    bias_f = bias.float() if bias is not None else None
+    valid_u8 = out_valid.view(torch.uint8) if out_valid is not None else None
     out = torch.empty((b, v_out, c_out), dtype=feats.dtype, device=feats.device)
     lib = _build.load("sparse_conv")
     ptrs = (_build.ptr(feats), _build.ptr(weights), _build.ptr(kmap), _build.ptr(bias_f),

@@ -24,23 +24,47 @@ Phases, each of which raises on failure:
      routing, vote) with every launch counter set to 0 first; checks the
      launch counts, that every bf16 call of K1 and K2 took a tensor-core
      variant and of K3 the 16-byte-gather one (counted per variant), the
-     vote table and the outputs, profiles one more view (device time by
-     kernel, the device's idle share), and only then takes each kernel's
-     device-busy time on its recorded calls from the profiler
-     (`device_ms`, per shape): once used, the profiler slows every later
-     launch on the host;
+     vote table and the outputs;
+     `graph_main_path`: the same path as CUDA graphs (`make_infer_step` and
+     the scene scan's view body, each captured once at these capacities;
+     the counts, set to 0 before, see the warm-ups and the captures):
+     replayed views equal eager ones (labels, coverage, routing and the
+     vote table exactly; the float outputs' largest gap is logged and held
+     to the bf16 tolerance), and the host clock a view over 12 interleaved
+     pairs of the eager and the replayed view body;
+     `scene_scan`: the bench's shape, one synthetic scene of 30 views
+     cycling 6 distinct ones through `make_scene_scan_step`, its votes equal
+     to per-view eager dispatch, scenes/s and ms a view of both (runs scan,
+     eager, eager, scan);
+     then it profiles one eager and one replayed view (device time by
+     kernel, the device's idle share; the replayed view's launches read from
+     the kernel names, since the wrappers' counters do not see replays), and
+     only then takes each kernel's device-busy time on its recorded calls
+     from the profiler (`device_ms`, per shape): once used, the profiler
+     slows every later launch on the host;
   5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
      stages on kernel K4 (`fused_gn`): the same seeded weights, two
      synthetic scenes of 40000 points and 8 views each through the
      whole-scene CLI's `run_eval_scenes` (per-view forward and routing,
      multi-view votes, KD-tree fill, IoU meters). A warm-up run of the
-     scenes' fullest view records every kernel's calls, which are held
-     against their plain versions (bf16 and fp32; K4 also timed beside the
-     port's unfused stages, and its statistics kernels on their own); the
-     `kernels` line takes K4's row from here; then the counted scenes check
-     every kernel's launches (K4's statistics once per conv), that every
-     bf16 K4 call took a tensor-core variant, the votes, the fill and the
-     summaries;
+     scenes' fullest view through the eager body records every kernel's
+     calls, which are held against their plain versions (bf16 and fp32; K4
+     also timed beside the port's unfused stages, and its statistics
+     kernels on their own); the `kernels` line takes K4's row from here;
+     then `make_infer_step`'s graph is captured and the scenes run eager,
+     graph, graph, eager: the eager runs check every kernel's launches (K4's
+     statistics once per conv), that every bf16 K4 call took a tensor-core
+     variant, the votes, the fill and the summaries; the graph runs launch
+     nothing outside their graph and equal the eager run exactly
+     (predictions, votes, summaries); a replayed view is profiled for its
+     launches;
+     `scene_reuse`: the same scenes through `run_eval_scenes(scene_reuse=
+     True)`, one 3D pass a scene at 4x the view's capacities (131072
+     points, 98304 voxels) and a 2D pass a view, both captured: K1's calls
+     at scene capacities recorded from an eager pass and held against the
+     plain version (bf16 and fp32, per shape with variant, time and bound),
+     the votes, the fill, finite summaries, s/scene beside phase 5's, and
+     each replayed step's launches from the profiler;
   6. training at full width (`train_phase`): the serving models freed, the
      B15N4 model built for training (bf16 parameters, fp32 AdamW masters of
      the trainable groups, SD and CLIP frozen) and driven through the
@@ -68,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -678,9 +703,49 @@ def profile_view(fn, *args) -> dict:
     return {
         "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
-        "port_kernels_ms": ours,
+        "port_kernels_ms": ours, "launches": named_launches(n for _, _, n in spans),
         "top": [[n[:80], ms] for n, ms in ranked[:12]],
     }
+
+
+# each wrapper's launches as the profiler names its kernels: K1's split-K sum
+# (`sparse_conv_reduce_kernel`) is part of a call, and K4's statistics are
+# counted by their second kernel, one a call
+KERNEL_NAMES = {
+    "sparse_conv": ("sparse_conv_mma_kernel", "sparse_conv_fma_kernel"),
+    "flash_attention": ("flash_mma_kernel", "flash_wide_kernel", "flash_fma_kernel"),
+    "deform_attn": ("deform_attn_vec_kernel", "deform_attn_kernel"),
+    "gn_silu_conv": ("gn_conv_wgmma_kernel", "gn_conv_f32_kernel"),
+    "gn_statistics": ("gn_affine_kernel",),
+}
+
+
+def named_launches(names) -> dict:
+    names = list(names)
+    return {k: sum(any(p in n for p in pats) for n in names) for k, pats in KERNEL_NAMES.items()}
+
+
+def with_statistics(expected) -> dict:
+    """Expected launches a view with K4's statistics (one a K4 call)."""
+    return dict(expected, gn_statistics=expected["gn_silu_conv"])
+
+
+def replayed_profile(phase, fn, args, expected, attempts: int = 3) -> dict:
+    """One call of `fn` (a replayed CUDA graph: the wrappers' counters do not
+    see it) under the profiler, with each kernel's launches read from the
+    kernel names; they must equal `expected`. The profiler can lose records
+    on the card's machine, so a session that counts fewer is taken again, up
+    to `attempts` times; more launches than expected fail at once."""
+    for attempt in range(attempts):
+        prof = profile_view(fn, *args)
+        prof["phase"] = phase
+        got = prof["launches"]
+        if got == expected:
+            return prof
+        log(dict(prof, retry=attempt, expected=expected))
+        if any(got[k] > expected[k] for k in expected):
+            break
+    raise AssertionError(f"{phase}: replayed launches {got}, expected {expected}")
 
 
 def _to(tree, dev):
@@ -777,15 +842,177 @@ def reference_check(cfg_path, fused_gn: bool = False) -> dict:
     return report
 
 
-def scene_phase(cfg, caps, table) -> dict:
+# the graph phases: interleaved pairs of an eager and a replayed view for the
+# host clock; the scene scan at the bench's shape (30 views a scene cycling
+# 6 distinct ones, BENCH_DISTINCT_VIEWS' default), in runs scan, eager,
+# eager, scan
+GRAPH_PAIRS = 12
+SCAN_VIEWS, SCAN_DISTINCT = 30, 6
+EXACT_KEYS = ("pred", "pred_3d", "covered_2d", "binary_pred")
+FLOAT_KEYS = ("feat_2d", "text", "logit_scale")
+
+
+def float_gap(got, want) -> dict:
+    """Largest |graph - eager| of each float output, and it over the bf16
+    tolerance of the kernel checks (a library call may pick another
+    algorithm under capture; none is allowed past that tolerance)."""
+    out = {}
+    for k in FLOAT_KEYS:
+        e = float((got[k].float() - want[k].float()).abs().max())
+        tol = TOL["bf16"] * max(1.0, float(want[k].float().abs().max()))
+        if not e <= tol:
+            raise AssertionError(f"{k}: replayed and eager differ by {e} > {tol}")
+        out[k] = e
+    return out
+
+
+def graph_main_path(model, cfg, caps, views, statics) -> tuple:
+    """The main path as captured device programs: `make_infer_step` (one
+    view's forward and routing) and the scene scan's view body (forward,
+    routing, vote), each captured once at the main path's capacities, with
+    the counts set to 0 before and read after (they count the eager warm-up
+    and the capture; replays count nothing). Replayed views must equal eager
+    ones: exact on the labels, the coverage, the binary routing and the vote
+    table, the float outputs within the bf16 tolerance (their largest gap is
+    logged). Then the host clock a view over GRAPH_PAIRS interleaved pairs
+    of the eager view body and the replayed one. Returns (infer_step, scan)."""
+    import torch
+
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step
+    from xmask3d_tpu_torch.engine.serve import (
+        fresh_vote_state, make_scene_scan_step, stack_views)
+
+    n_cls = model.cfg.num_test_classes
+    reset_launches()
+    t0 = time.time()
+    infer_step, _ = make_infer_step(model, cfg)
+    infer_step(views[0], statics)
+    scan = make_scene_scan_step(model, cfg)
+    body = scan.step
+    body(views[0], statics, *fresh_vote_state(caps.max_points, n_cls))
+    torch.cuda.synchronize()
+    captured, capture_s = launches(), time.time() - t0
+    if infer_step.graphs != 1 or body.graphs != 1:
+        raise AssertionError(f"graphs held: {infer_step.graphs}, {body.graphs}")
+    gaps = []
+    for b in views[1:]:
+        got = {k: v.clone() for k, v in infer_step(b, statics).items()}
+        want = infer_step.fn(b, statics)
+        torch.cuda.synchronize()
+        for k in EXACT_KEYS:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{k}: the replayed view differs from the eager one")
+        gaps.append(float_gap(got, want))
+    got = scan(stack_views(views[1:]), range(len(views) - 1), statics,
+               *fresh_vote_state(caps.max_points, n_cls))
+    if body.graphs != 1:
+        raise AssertionError(f"the scan captured its view body again: {body.graphs} graphs")
+    want = fresh_vote_state(caps.max_points, n_cls)
+    for b in views[1:]:
+        want = body.fn(b, statics, *want)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the scan's vote table differs from the eager view body's")
+    valid = sum(int(b["point_valid"].sum()) for b in views[1:])
+    if int(got[1].sum()) != valid:
+        raise AssertionError(f"{int(got[1].sum())} votes for {valid} valid view points")
+
+    votes = fresh_vote_state(caps.max_points, n_cls)
+    ms = {"eager": [], "graph": []}
+    for r in range(GRAPH_PAIRS):
+        b = views[1 + r % (len(views) - 1)]
+        order = (("eager", body.fn), ("graph", body))
+        for name, fn in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn(b, statics, *votes)
+            torch.cuda.synchronize()
+            ms[name].append((time.time() - t0) * 1e3)
+    log({"phase": "graph_main_path", "views": len(views) - 1, "capture_seconds": capture_s,
+         "launches_warmup_and_capture": captured, "graphs": infer_step.graphs + body.graphs,
+         "exact": list(EXACT_KEYS) + ["votes", "counter"], "float_max_abs_diff": gaps,
+         "pairs": GRAPH_PAIRS, "host_ms": ms,
+         "mean_eager_ms": sum(ms["eager"]) / GRAPH_PAIRS,
+         "mean_graph_ms": sum(ms["graph"]) / GRAPH_PAIRS,
+         "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    for name, n in captured.items():
+        if name in EXPECTED_NONZERO and n == 0:
+            raise AssertionError(f"{name}: no launch while the graphs were captured")
+    return infer_step, scan
+
+
+# kernels every main-path capture must launch (K4 runs only with fused_gn)
+EXPECTED_NONZERO = ("sparse_conv", "flash_attention", "deform_attn")
+
+
+def scene_scan(scan, model, cfg, caps, statics) -> dict:
+    """The bench's shape without the bench: one synthetic scene of
+    SCAN_VIEWS views (SCAN_DISTINCT distinct ones cycled by `idxseq`) at
+    the bench's capacities through `make_scene_scan_step` (the view body
+    captured in `graph_main_path`), against the same views dispatched one
+    by one through the eager view body; runs scan, eager, eager, scan. Every
+    run's votes must be equal."""
+    import torch
+
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.serve import fresh_vote_state, stack_views
+
+    n_cls = model.cfg.num_test_classes
+    views = [synthetic_batch(1, caps, seed=400 + i, num_points=20000, image_size=(512, 512),
+                             mask_shape=tuple(cfg.mask_shape), context_length=77,
+                             vocab_size=49408)
+             for i in range(SCAN_DISTINCT)]
+    stacked = stack_views(views)
+    idxseq = torch.arange(SCAN_VIEWS, dtype=torch.int32) % SCAN_DISTINCT
+
+    def eager():
+        vc = fresh_vote_state(caps.max_points, n_cls)
+        for i in idxseq.tolist():
+            vc = scan.step.fn(views[i], statics, *vc)
+        return vc
+
+    def graph():
+        return scan(stacked, idxseq, statics, *fresh_vote_state(caps.max_points, n_cls))
+
+    seconds, results = {"scan": [], "eager": []}, []
+    for name, fn in (("scan", graph), ("eager", eager), ("eager", eager), ("scan", graph)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        vc = fn()
+        torch.cuda.synchronize()
+        seconds[name].append(time.time() - t0)
+        results.append(vc)
+    for vc in results[1:]:
+        if not (torch.equal(vc[0], results[0][0]) and torch.equal(vc[1], results[0][1])):
+            raise AssertionError("the scan's votes differ from per-view dispatch")
+    valid = sum(int(views[i]["point_valid"].sum()) for i in idxseq.tolist())
+    if int(results[0][1].sum()) != valid:
+        raise AssertionError(f"{int(results[0][1].sum())} votes for {valid} valid view points")
+    if scan.step.graphs != 1:
+        raise AssertionError(f"the scan holds {scan.step.graphs} graphs of its view body")
+    report = {"phase": "scene_scan", "views": SCAN_VIEWS, "distinct_views": SCAN_DISTINCT,
+              "seconds": seconds, "votes_equal": True}
+    for name, ts in seconds.items():
+        mean = sum(ts) / len(ts)
+        report[f"{name}_scenes_per_sec"] = 1.0 / mean
+        report[f"{name}_ms_per_view"] = mean * 1e3 / SCAN_VIEWS
+    log(report)
+    return report
+
+
+def scene_phase(cfg, caps, table):
     """Whole scenes at full width with fused_gn: the model built again from
     the same seed, two synthetic scenes through `run_eval_scenes`. A warm-up
-    run of the fullest view records every kernel's calls, which are held
-    against their plain versions (K1-K3 again, on this path's inputs); the
-    counted run must launch every
-    kernel its per-view count times over all views, vote once per kept view
-    point, leave no scene point without a prediction and give finite
-    summaries. Returns K4's row of the `kernels` line."""
+    run of the fullest view through the eager body records every kernel's
+    calls, which are held against their plain versions (K1-K3 again, on
+    this path's inputs). `make_infer_step`'s graph is then captured (its
+    counts read) and the scenes run four times, eager, graph, graph, eager:
+    each eager run must launch every kernel its per-view count times over
+    all views, vote once per kept view point, leave no scene point without
+    a prediction and give finite summaries; each graph run must launch
+    nothing outside its graph and give the eager run's predictions, votes
+    and summaries exactly. A replayed view is profiled, its launches read
+    from the kernel names. Returns (K4's row of the `kernels` line, the
+    model, statics, scenes and s/scene of both routes) for `scene_reuse`."""
     import math
 
     import torch
@@ -800,6 +1027,7 @@ def scene_phase(cfg, caps, table) -> dict:
     mc = model.cfg
     statics = build_statics(model, cfg)
     infer_step, route_2d = make_infer_step(model, cfg)
+    body = infer_step.fn
     scenes = [synthetic_scene(caps, seed=200 + i, num_points=SCENE_POINTS, num_views=SCENE_VIEWS,
                               num_classes=cfg.test_classes, image_size=(512, 512),
                               mask_shape=tuple(cfg.mask_shape), context_length=77,
@@ -820,7 +1048,7 @@ def scene_phase(cfg, caps, table) -> dict:
     reset_launches()
     with recording(calls):
         t0 = time.time()
-        infer_step(batch, statics)
+        body(batch, statics)
         torch.cuda.synchronize()
     log({"phase": "scene_warmup_view", "ms": (time.time() - t0) * 1e3, "launches": launches(),
          "live_voxels": int(batch["hierarchy"].levels[0].num[0]),
@@ -836,34 +1064,45 @@ def scene_phase(cfg, caps, table) -> dict:
     row = rows["gn_silu_conv"]
     del calls
     torch.cuda.empty_cache()
-    infer_step(batch, statics)  # refill the allocator's cache, uncounted
-    torch.cuda.synchronize()
-
-    # the counted scenes
-    record = []
-    torch.cuda.reset_peak_memory_stats()
+    body(batch, statics)  # refill the allocator's cache, uncounted
     reset_launches()
     t0 = time.time()
-    variants = {}
-    with counting_variants(table, variants):
-        summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
-                                  infer_step=infer_step, route_2d=route_2d, record=record)
-    seconds = time.time() - t0
-    counts = launches()
-    log({"phase": "scenes", "scenes": len(scenes), "views": n_views, "seconds": seconds,
-         "seconds_per_scene": seconds / len(scenes), "host_ms_per_view": seconds * 1e3 / n_views,
-         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
-         "expected_per_view": expected, "variants": variants, "summary": summary,
-         "kept": [r["kept"] for r in record], "counter": [r["counter"] for r in record]})
+    infer_step(batch, statics)  # the eager warm-up and the capture
+    torch.cuda.synchronize()
+    log({"phase": "scene_capture", "seconds": time.time() - t0, "graphs": infer_step.graphs,
+         "launches_warmup_and_capture": launches()})
+
+    runs = []
+    for route in ("eager", "graph", "graph", "eager"):
+        record, variants = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        with counting_variants(table, variants):
+            summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
+                                      infer_step=body if route == "eager" else infer_step,
+                                      route_2d=route_2d, record=record)
+        seconds = time.time() - t0
+        runs.append({"route": route, "seconds": seconds, "summary": summary, "record": record,
+                     "launches": launches(), "variants": variants,
+                     "peak": torch.cuda.max_memory_allocated()})
+        log({"phase": "scenes", "route": route, "scenes": len(scenes), "views": n_views,
+             "seconds": seconds, "seconds_per_scene": seconds / len(scenes),
+             "host_ms_per_view": seconds * 1e3 / n_views, "peak_mem_bytes": runs[-1]["peak"],
+             "launches": runs[-1]["launches"], "expected_per_view": expected,
+             "variants": variants, "summary": summary, "kept": [r["kept"] for r in record],
+             "counter": [r["counter"] for r in record]})
+    eager = runs[0]
+    counts = eager["launches"]
     for name, n in expected.items():
         if counts[name] != n * n_views:
             raise AssertionError(f"{name}: {counts[name]} launches over the scenes, "
                                  f"expected {n * n_views}")
-    check_variants(variants, expected, n_views)
+    check_variants(eager["variants"], expected, n_views)
     if counts["gn_statistics"] != counts["gn_silu_conv"]:
         raise AssertionError(f"K4's statistics ran {counts['gn_statistics']} times for "
                              f"{counts['gn_silu_conv']} conv launches")
-    for rec, sc in zip(record, scenes):
+    for rec, sc in zip(eager["record"], scenes):
         if rec["views"] != len(sc["views"]) or rec["kept"] <= 0:
             raise AssertionError(f"{rec['name']}: {rec['views']} views, {rec['kept']} kept rows")
         if any(c != rec["kept"] for c in rec["counter"].values()):
@@ -873,11 +1112,128 @@ def scene_phase(cfg, caps, table) -> dict:
                     or pred.max() >= cfg.test_classes:
                 raise AssertionError(f"{rec['name']} {stream}: predictions do not cover the scene")
     for key in ("hIoU", "mIoU", "hIoU_2d", "mIoU_2d", "hIoU_3d", "mIoU_3d"):
-        if not math.isfinite(summary[key]):
-            raise AssertionError(f"{key} = {summary[key]}")
-    log(profile_view(infer_step, batch, statics))
+        if not math.isfinite(eager["summary"][key]):
+            raise AssertionError(f"{key} = {eager['summary'][key]}")
+    for run in runs[1:]:
+        if run["route"] == "graph" and any(run["launches"].values()):
+            raise AssertionError(f"a graph run launched outside its graph: {run['launches']}")
+        same = [k for k in eager["summary"] if k != "scenes_per_sec"
+                and run["summary"][k] != eager["summary"][k]]
+        for a, b in zip(run["record"], eager["record"]):
+            same += [f"{a['name']} kept/counter"] if (a["kept"], a["counter"]) != \
+                (b["kept"], b["counter"]) else []
+            same += [f"{a['name']} {k}" for k in a["pred"] if not (a["pred"][k] == b["pred"][k]).all()]
+        if same:
+            raise AssertionError(f"the {run['route']} run differs from the first eager run: {same}")
+    per_scene = {r: [run["seconds"] / len(scenes) for run in runs if run["route"] == r]
+                 for r in ("eager", "graph")}
+    log({"phase": "scenes_graph_vs_eager", "seconds_per_scene": per_scene,
+         "equal": "predictions, kept, counter and summaries of every run"})
+    log(profile_view(body, batch, statics))
+    log(replayed_profile("scene_graph_profile", infer_step, (batch, statics),
+                         with_statistics(expected)))
     row["launches"] = counts["gn_silu_conv"]
-    return row
+    infer_step.reset()
+    return row, model, statics, scenes, per_scene
+
+
+def scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene) -> None:
+    """The scenes of `scene_phase` through `run_eval_scenes(scene_reuse=True)`
+    on the same model (fused_gn): one 3D pass a scene at
+    `scene_caps_from_view_caps` (4x the view's capacities) and a 2D pass a
+    view, both captured. First one eager 3D pass of the first scene records
+    K1's calls at scene capacities, held against the plain version in bf16
+    and fp32 and timed per shape (variant, ms, bound). The counted run (the
+    counts set to 0 before it: they see the two captures) must vote once per
+    kept view point, fill every scene point and give finite summaries; a
+    second run times the host; replayed steps are profiled for their
+    launches: K1 alone in the 3D pass, everything else in a view's."""
+    import math
+
+    import torch
+
+    from xmask3d_tpu_torch.engine.graphs import copy_into
+    from xmask3d_tpu_torch.engine.infer_cli import run_eval_scenes
+    from xmask3d_tpu_torch.engine.scene_reuse import (
+        make_reuse_infer_step, make_scene_3d_step, reuse_view_batch, scene_3d_batch,
+        scene_caps_from_view_caps)
+
+    scene_caps = scene_caps_from_view_caps(caps)
+    step3d = make_scene_3d_step(model)
+    reuse_step, route_2d = make_reuse_infer_step(model, cfg)
+    expected = expected_launches(model.cfg)
+    sb = scene_3d_batch(scenes[0]["coords"], scenes[0]["colors"], scene_caps,
+                        voxel_size=cfg.voxel_size, input_color=cfg.input_color)
+    calls = {"sparse_conv": []}
+    with recording(calls):
+        step3d.fn(sb)
+        torch.cuda.synchronize()
+    if len(calls["sparse_conv"]) != expected["sparse_conv"]:
+        raise AssertionError(f"{len(calls['sparse_conv'])} K1 calls in a scene's 3D pass")
+    log({"phase": "scene_reuse_batch", "capacities": [scene_caps.max_points,
+                                                      scene_caps.max_voxels],
+         "live_voxels": int(sb["hierarchy"].levels[0].num[0]),
+         "live_points": int(sb["point_valid"].sum())})
+    k1_row = check_kernels(table, calls)[0]
+    log({"phase": "scene_reuse_k1", "row": k1_row})
+    del calls
+    torch.cuda.empty_cache()
+
+    runs = []
+    for _ in range(2):
+        record = []
+        reset_launches()
+        t0 = time.time()
+        summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
+                                  infer_step=reuse_step, route_2d=route_2d, record=record,
+                                  scene_reuse=True, scene_3d_step=step3d, scene_caps=scene_caps)
+        runs.append({"seconds": time.time() - t0, "launches": launches(), "summary": summary,
+                     "record": record})
+    first, second = runs
+    n_views = sum(len(sc["views"]) for sc in scenes)
+    log({"phase": "scene_reuse", "scenes": len(scenes), "views": n_views,
+         "seconds": [r["seconds"] for r in runs],
+         "seconds_per_scene": [r["seconds"] / len(scenes) for r in runs],
+         "phase5_seconds_per_scene": per_scene, "graphs": step3d.graphs + reuse_step.graphs,
+         "launches_first_run_with_captures": first["launches"],
+         "launches_second_run": second["launches"], "summary": first["summary"],
+         "kept": [r["kept"] for r in first["record"]],
+         "counter": [r["counter"] for r in first["record"]]})
+    if step3d.graphs != 1 or reuse_step.graphs != 1 or any(second["launches"].values()):
+        raise AssertionError("scene reuse did not run on its two graphs")
+    for name in ("sparse_conv", "flash_attention", "deform_attn", "gn_silu_conv"):
+        if first["launches"][name] == 0:
+            raise AssertionError(f"{name}: no launch in the scene-reuse captures")
+    for rec, sc in zip(first["record"], scenes):
+        if rec["kept"] <= 0 or any(c != rec["kept"] for c in rec["counter"].values()):
+            raise AssertionError(f"{rec['name']}: votes {rec['counter']}, {rec['kept']} kept")
+        for stream, pred in rec["pred"].items():
+            if pred.shape != (len(sc["coords"]),) or pred.min() < 0 \
+                    or pred.max() >= cfg.test_classes:
+                raise AssertionError(f"{rec['name']} {stream}: predictions do not cover the scene")
+    for key in ("hIoU", "mIoU", "hIoU_2d", "mIoU_2d", "hIoU_3d", "mIoU_3d"):
+        if not math.isfinite(first["summary"][key]):
+            raise AssertionError(f"{key} = {first['summary'][key]}")
+    if any(second["summary"][k] != first["summary"][k] for k in first["summary"]
+           if k != "scenes_per_sec"):
+        raise AssertionError("two scene-reuse runs of the same scenes differ")
+    only_k1 = {k: (expected["sparse_conv"] if k == "sparse_conv" else 0) for k in KERNEL_NAMES}
+    log(replayed_profile("scene_reuse_3d_profile", step3d, (sb,), only_k1))
+    # a later view of a scene: the scene's tables are in the step's buffers,
+    # the view's leaves and ids are copied in, one replay
+    batch, ids, *_ = reuse_view_batch(scenes[0]["views"][0], caps,
+                                      sb["point_valid"][0].cpu().numpy())
+    reuse_step.load(batch, statics, step3d(sb), ids)
+
+    def later_view(batch, ids):
+        copy_into(reuse_step.inputs[0], batch)
+        copy_into(reuse_step.inputs[3], ids)
+        return reuse_step.run()
+
+    log(replayed_profile("scene_reuse_view_profile", later_view, (batch, ids),
+                         dict(with_statistics(expected), sparse_conv=0)))
+    step3d.reset()
+    reuse_step.reset()
 
 
 # --------------------------------------------------------------------------
@@ -1352,7 +1708,17 @@ def main() -> int:
     if int(counter.sum()) != valid or int(votes.sum()) != valid:
         raise AssertionError(f"votes {int(votes.sum())} / counter {int(counter.sum())} "
                              f"!= {valid} valid view points")
+
+    # the main path as captured graphs, and the scene scan; both time the
+    # host before any profiler is attached to the process
+    infer_graph, scan = graph_main_path(model, cfg, caps, views, statics)
+    scene_scan(scan, model, cfg, caps, statics)
     log(profile_view(view_body, views[1], statics, votes, counter))
+    log(replayed_profile("graph_profile", scan.step, (views[1], statics, votes, counter),
+                         with_statistics(expected)))
+    infer_graph.reset()
+    scan.step.reset()
+    del infer_graph, scan
     # the same view recorded again (its calls were freed before the counted
     # views, which slow down beside ~2 GB of held tensors)
     calls = {name: [] for name, n in expected.items() if n}
@@ -1366,9 +1732,14 @@ def main() -> int:
          "pred_labels": outputs["pred_labels"][0, :10].tolist(),
          "final_masks": int(outputs["final_mask_valid"].sum())})
     del model, outputs, views, statics, view_body, votes, counter
+    gc.collect()
     torch.cuda.empty_cache()
 
-    rows.append(scene_phase(cfg, caps, table))
+    k4_row, model, statics, scenes, per_scene = scene_phase(cfg, caps, table)
+    rows.append(k4_row)
+    scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene)
+    del model, statics, scenes
+    gc.collect()
     torch.cuda.empty_cache()
 
     train_phase(cfg, caps, table)

@@ -144,6 +144,38 @@ def test_scene_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert all(len(p) == len(scene["coords"]) for p in pred.values())
 
 
+def test_serving_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The scene scan, stacked scene views, the scene batch of scene reuse
+    and the CLI's serving model follow the device rule; a CUDA device named
+    without an index is the current one (a model on cuda:0 is on "cuda")."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_scene
+    from xmask3d_tpu_torch.device import resolve_device
+    from xmask3d_tpu_torch.engine import builder, infer_cli, scene_reuse, serve
+    from xmask3d_tpu_torch.engine.graphs import GraphStep
+
+    cfg = load_config(os.path.join(ROOT, "configs/scannet/xmask3d_scannet_B15N4.yaml"))
+    cfg.update(arch_3d="MinkUNet14A", arch_binary_head="MinkUNet14A", mask_shape=[24, 32],
+               compute_dtype="float32")
+    caps = Capacities(max_points=64, max_voxels=32, max_targets=4)
+    scene = synthetic_scene(caps, num_points=80, num_views=1)
+    model = builder.build_model(cfg, tiny=True, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: serve.make_scene_scan_step(model, cfg),
+                 lambda: serve.stack_scene_views(scene, caps, 15),
+                 lambda: scene_reuse.scene_3d_batch(scene["coords"], None, caps),
+                 lambda: infer_cli.build_serving_model(cfg, tiny=True),
+                 lambda: GraphStep(lambda: None, "cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    stacked, idxseq, n = serve.stack_scene_views(scene, caps, 15, device="cpu")
+    assert stacked["img"].device.type == "cpu" and n == 80 and idxseq.tolist() == [0]
+    assert serve.make_scene_scan_step(model, cfg, device="cpu").step.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == resolve_device(None) == torch.device("cuda", 0)
+
+
 def test_train_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     """The trainer's `main`, the training build and its data stream follow
     the device rule."""

@@ -563,3 +563,120 @@ def test_tiny_training_step_on_the_card(cuda):
              and not torch.equal(p, before[n])]
     assert moved and all(torch.equal(p, before[n]) for n, p in model.named_parameters()
                          if labels[n] == "frozen")
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs: kernels launched through ctypes inside a capture
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cin,cout,rows", [(96, 128, 4096), (256, 256, 256)])
+def test_sparse_conv_captured_and_replayed_equals_eager(cuda, cin, cout, rows):
+    """One bf16 K1 call captured into a CUDA graph and replayed equals the
+    eager call bit for bit, before and after new values are copied into the
+    graph's input buffers: the launch, its scratch (the split-K partial
+    sums of the deep level's variant) and its stream come from the capture,
+    and no pointer is kept from one call to the next. The counter counts the
+    capture, not the replays."""
+    rng = np.random.RandomState(cin)
+    coords = np.unique(rng.randint(0, 24, size=(3000, 3)).astype(np.int32), axis=0)
+    h = tsc.build_hierarchy(coords, (rows, rows // 2, rows // 4, rows // 8, rows // 16))
+    kmap = torch.from_numpy(h.kmap3[0][None]).to(cuda)
+    valid = torch.from_numpy(h.valid[0][None]).to(cuda)
+    feats = torch.from_numpy(rng.randn(1, rows, cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(27, cin, cout) / 30).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    eager = tsc.sparse_conv(feats, w, kmap, out_valid=valid)
+    static = feats.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsc.sparse_conv(static, w, kmap, out_valid=valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = tsc.sparse_conv.launches
+    with torch.cuda.graph(graph):
+        out = tsc.sparse_conv(static, w, kmap, out_valid=valid)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    new = torch.randn_like(feats)
+    static.copy_(new)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tsc.sparse_conv(new, w, kmap, out_valid=valid))
+    assert tsc.sparse_conv.launches == n + 2  # the capture and the last eager call
+
+
+def _tiny_serving(cuda, dtype):
+    import os
+
+    from xmask3d_tpu_torch.config import load_config
+    from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs/scannet/xmask3d_scannet_B15N4.yaml"))
+    cfg.update(arch_3d="MinkUNet14A", arch_binary_head="MinkUNet14A", mask_shape=[24, 32],
+               compute_dtype=dtype, max_points=512, max_voxels=256, max_targets=8)
+    model = build_model(cfg, tiny=True, seed=1, device=cuda, fused_gn=True)
+    return cfg, model, build_statics(model, cfg, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_view_equals_eager(cuda, dtype):
+    """The tiny model's view through `make_infer_step` (one CUDA graph,
+    K1-K4 inside it) equals its eager body on two views, which replay the
+    same graph: exact on the routed labels, within 1e-5 (fp32) or 2^-7
+    (bf16) relative on the features."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step
+
+    cfg, model, statics = _tiny_serving(cuda, dtype)
+    step, _ = make_infer_step(model, cfg)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for seed in (3, 4):
+        batch = synthetic_batch(1, Capacities(512, 256, 8), seed=seed, num_points=400,
+                                image_size=(64, 64), mask_shape=(24, 32), context_length=16,
+                                vocab_size=512, device=cuda)
+        got = {k: v.clone() for k, v in step(batch, statics).items()}
+        want = step.fn(batch, statics)
+        torch.cuda.synchronize()
+        for k in ("pred", "pred_3d", "covered_2d", "binary_pred"):
+            assert torch.equal(got[k], want[k]), k
+        for k in ("feat_2d", "text"):
+            err = float((got[k] - want[k]).abs().max())
+            assert err <= tol * max(1.0, float(want[k].abs().max())), (k, err)
+    assert step.graphs == 1
+
+
+def test_scene_scan_equals_per_view_dispatch_on_the_card(cuda):
+    """`make_scene_scan_step` (the captured view body replayed per view)
+    leaves the same votes as the eager view body dispatched view by view,
+    on a scene's stacked views with plumbed point ids."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_scene
+    from xmask3d_tpu_torch.engine import serve
+
+    cfg, model, statics = _tiny_serving(cuda, "bfloat16")
+    caps = Capacities(512, 256, 8)
+    scene = synthetic_scene(caps, seed=5, num_points=900, num_views=3, num_classes=cfg.classes,
+                            image_size=(64, 64), mask_shape=(24, 32), context_length=16,
+                            vocab_size=512)
+    stacked, idxseq, n_pts = serve.stack_scene_views(scene, caps, cfg.classes, device=cuda)
+    scan = serve.make_scene_scan_step(model, cfg, device=cuda)
+    got = scan(stacked, idxseq, statics, *serve.fresh_vote_state(n_pts, 19, device=cuda))
+    body = serve.make_view_body(model, cfg, device=cuda)
+    want = serve.fresh_vote_state(n_pts, 19, device=cuda)
+    for v in idxseq.tolist():
+        want = body(_view_of(stacked, v), statics, *want)
+    assert int(got[1].sum()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert scan.step.graphs == 1
+
+
+def _view_of(tree, v):
+    from xmask3d_tpu_torch.engine.graphs import tree_map
+
+    return tree_map(lambda t: t[v], tree)

@@ -60,14 +60,17 @@ class Checkpointer:
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
 
+    def _load(self, step: Optional[int]) -> dict:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
     def restore(self, state, step: Optional[int] = None) -> Tuple[object, dict]:
         """Load a checkpoint (the latest unless `step` is given) into a built
         `TrainState`: masters and parameters, buffers, optimizer state and
         the step count. Returns (state, meta)."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        payload = self._load(step)
         trainable = _trainable(state)
         if set(payload["trainable"]) != set(trainable):
             raise KeyError("checkpoint and model have different trainable parameters")
@@ -82,3 +85,24 @@ class Checkpointer:
         state.optimizer.load_state_dict(payload["opt_state"])
         state.step = int(payload["meta"]["step"])
         return state, payload["meta"]
+
+    def restore_for_serving(self, model, step: Optional[int] = None) -> dict:
+        """Load a checkpoint (the latest unless `step` is given) into a
+        serving model: each master into its parameter, cast to the
+        parameter's (compute) dtype, and the BatchNorm statistics; the frozen
+        parameters keep their values, as in `restore`. Returns the meta."""
+        payload = self._load(step)
+        labels = label_tree(model)
+        params = dict(model.named_parameters())
+        trainable = {n for n, lab in labels.items() if lab != "frozen"}
+        if set(payload["trainable"]) != trainable:
+            raise KeyError("checkpoint and model have different trainable parameters")
+        buffers = dict(model.named_buffers())
+        if set(payload["batch_stats"]) != set(buffers):
+            raise KeyError("checkpoint and model have different buffers")
+        with torch.no_grad():
+            for name, master in payload["trainable"].items():
+                params[name].copy_(master)
+            for name, value in payload["batch_stats"].items():
+                buffers[name].copy_(value)
+        return payload["meta"]

@@ -64,12 +64,14 @@ def pack_targets(label_2d: np.ndarray, max_targets: int):
 
 
 def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
-                  grid_jitter_rng=None) -> Dict[str, Any]:
+                  grid_jitter_rng=None, hierarchy: bool = True) -> Dict[str, Any]:
     """Pad and stack view samples into a fixed-shape batch of tensors on
     `device` (the GPU unless "cpu" is asked for). `grid_jitter_rng` (a numpy
     RandomState; training only) shifts the whole batch's voxel coords by
     one integer translation in [0, 16) a batch, which re-draws which voxels
-    pool together at every stride, as the JAX package does."""
+    pool together at every stride, as the JAX package does. Without
+    `hierarchy` the voxel hierarchy (the kernel maps, built in numpy) is
+    neither built nor in the batch: scene reuse runs no per-view 3D pass."""
     device = resolve_device(device)
     jitter = None if grid_jitter_rng is None \
         else grid_jitter_rng.randint(0, 16, size=(1, 3)).astype(np.int32)
@@ -83,7 +85,8 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
         if jitter is not None:
             coords = coords + jitter
         coords = np.clip(coords, 0, 1023)
-        hs.append(build_hierarchy(coords, caps.level_caps()))
+        if hierarchy:
+            hs.append(build_hierarchy(coords, caps.level_caps()))
         vox_feats.append(_pad1(s.voxel_feats.astype(np.float32), v))
         pv = np.zeros((p,), bool)
         pv[: min(len(s.inds_reconstruct), p)] = True
@@ -102,7 +105,7 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
     def t(arrs):
         return torch.from_numpy(np.stack(arrs)).to(device)
 
-    batch: Dict[str, Any] = {"hierarchy": stack_hierarchies(hs, device)}
+    batch: Dict[str, Any] = {"hierarchy": stack_hierarchies(hs, device)} if hierarchy else {}
     batch["voxel_feats"] = t(vox_feats)
     batch["point_valid"] = t(point_valid)
     for k, vals in fields.items():

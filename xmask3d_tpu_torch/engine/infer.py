@@ -17,6 +17,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from xmask3d_tpu_torch.device import category_columns
 from xmask3d_tpu_torch.utils.metrics import hiou
 
 
@@ -46,9 +47,8 @@ def ensemble_and_route(
     )
     ncls = text.shape[0]
     dev = text.device
-    cols = torch.arange(ncls, device=dev)
-    base_cols = torch.isin(cols, torch.tensor(list(base_category), device=dev))
-    novel_cols = torch.isin(cols, torch.tensor(list(novel_category), device=dev))
+    base_cols = category_columns(ncls, base_category, dev)
+    novel_cols = category_columns(ncls, novel_category, dev)
     overlap = base_cols.float()
 
     # later masks overwrite earlier ones on shared points (the reference's
@@ -68,7 +68,7 @@ def ensemble_and_route(
     logits_final = torch.where(covered[..., None], ens, torch.log(logits.clamp(min=1e-30)))
 
     binary_pred = outputs["binary_pred"].float()[..., None]
-    neg = torch.tensor(-1e10, dtype=torch.float32, device=dev)
+    neg = torch.full((), -1e10, dtype=torch.float32, device=dev)
 
     def route(lg):
         return binary_pred * torch.where(novel_cols, neg, lg) \
@@ -102,10 +102,9 @@ def fill_and_route_2d(
     filled = torch.gather(feat_2d, 1, idx)
     logits = logit_scale * torch.einsum("bpc,lc->bpl", filled.float(), text)
     dev = text.device
-    cols = torch.arange(text.shape[0], device=dev)
-    base_cols = torch.isin(cols, torch.tensor(list(base_category), device=dev))
-    novel_cols = torch.isin(cols, torch.tensor(list(novel_category), device=dev))
-    neg = torch.tensor(-1e10, dtype=torch.float32, device=dev)
+    base_cols = category_columns(text.shape[0], base_category, dev)
+    novel_cols = category_columns(text.shape[0], novel_category, dev)
+    neg = torch.full((), -1e10, dtype=torch.float32, device=dev)
     bp = binary_pred[..., None]
     routed = bp * torch.where(novel_cols, neg, logits) + (1 - bp) * torch.where(base_cols, neg, logits)
     return routed.argmax(dim=-1).int()

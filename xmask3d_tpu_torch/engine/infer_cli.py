@@ -10,8 +10,15 @@ from their nearest seen one (KD-tree), and keeps the base/novel IoU meters.
         --config configs/scannet/xmask3d_scannet_B15N4.yaml --synthetic --num_scenes 2
 
 `XMASK3D_FUSED_GN=1` runs the VAE resblocks' GroupNorm -> SiLU -> conv3x3
-stages on kernel K4. Runs on the GPU; `main(argv, device="cpu")` runs the
-plain versions of the kernels on the CPU.
+stages on kernel K4. `--ckpt DIR` serves the newest checkpoint the trainer
+wrote there, `--converted NPZ` the weights `scripts/convert_checkpoints.py`
+wrote, `--scene_reuse` (default from `XMASK3D_SCENE_REUSE`) runs the 3D
+branch once a scene (`engine/scene_reuse.py`) and `--save_ply DIR` writes
+each scene's predicted and ground-truth labels as coloured point clouds.
+On the GPU every view's forward and routing is one CUDA graph, captured at
+the first view and replayed for the others (`engine/graphs.py`);
+`main(argv, device="cpu")` runs the same steps eagerly on the CPU with the
+plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from xmask3d_tpu_torch.engine.builder import (
     capacities_from_cfg,
     data_tokenizer,
 )
+from xmask3d_tpu_torch.engine.graphs import GraphStep
 from xmask3d_tpu_torch.engine.infer import (
     SceneVoter,
     ensemble_and_route,
@@ -54,28 +62,64 @@ def get_parser():
     p.add_argument("--config", required=True)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny model variant (CPU smoke runs)")
+    p.add_argument("--ckpt", default="",
+                   help="directory of the trainer's checkpoints (<save_path>/model); "
+                        "the newest is served")
+    p.add_argument("--converted", default="",
+                   help="converted-weights npz from scripts/convert_checkpoints.py")
     p.add_argument("--num_scenes", type=int, default=0)
+    p.add_argument("--save_ply", default="",
+                   help="directory for each scene's predicted and ground-truth PLY files")
     p.add_argument("--allow_hash_tokenizer", action="store_true",
                    help="permit the HashTokenizer fallback on real data "
                         "(from-scratch runs only; incompatible with pretrained CLIP weights)")
+    p.add_argument("--scene_reuse", action="store_true",
+                   default=os.environ.get("XMASK3D_SCENE_REUSE", "0") == "1",
+                   help="voxelize each scene once and reuse its 3D features across views "
+                        "(engine/scene_reuse.py; departs from the reference protocol)")
     p.add_argument("opts", nargs="*")
     return p
 
 
 def make_infer_step(model, cfg):
-    """(infer_step, route_2d): one view's eval forward + ensemble/routing,
-    and the 2D branch's fill-and-route, both on the model's device."""
+    """(infer_step, route_2d): one view's eval forward + ensemble/routing
+    (a `GraphStep`: a CUDA graph on the card, captured at the first call;
+    its `fn` is the eager body), and the 2D branch's fill-and-route, both on
+    the model's device. infer_step's outputs are valid until its next call."""
     mc = model.cfg
 
     @torch.no_grad()
-    def infer_step(batch, statics):
+    def infer_body(batch, statics):
         outputs = model.eval_forward(batch, statics)
         return ensemble_and_route(outputs, mc.base_category, mc.novel_category,
                                   mc.num_test_classes, cfg.base_ratio, cfg.novel_ratio)
 
     route_2d = partial(fill_and_route_2d, base_category=mc.base_category,
                        novel_category=mc.novel_category)
-    return infer_step, route_2d
+    return GraphStep(infer_body, next(model.parameters()).device), route_2d
+
+
+def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = False,
+                        ckpt: str = "", converted: str = ""):
+    """The eval model on `device` with seeded weights, then the newest
+    trainer checkpoint under `ckpt` (its masters in the compute dtype and
+    its BatchNorm statistics; the frozen towers keep their built weights,
+    as the trainer's restore keeps them) and the converted npz
+    `converted`, in that order."""
+    dev = resolve_device(device)
+    model = build_model(cfg, tiny=tiny, device=dev, fused_gn=fused_gn)
+    if ckpt:
+        from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
+
+        meta = Checkpointer(ckpt).restore_for_serving(model)
+        logger.info(f"serving checkpoint step {meta['step']} from {ckpt}")
+    if converted:
+        from xmask3d_tpu_torch.checkpoint.load_converted import apply_converted
+
+        applied_p, applied_s = apply_converted(model, converted)
+        logger.info(f"loaded {len(applied_p)} params + {len(applied_s)} batch_stats "
+                    f"from {converted}")
+    return model
 
 
 def run_scene(scene, infer_step, route_2d, statics, caps, num_classes, device=None,
@@ -109,12 +153,18 @@ def run_scene(scene, infer_step, route_2d, statics, caps, num_classes, device=No
 
 
 def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, infer_step,
-                    route_2d, device=None, record: Optional[List[Dict]] = None) -> Dict[str, float]:
+                    route_2d, device=None, record: Optional[List[Dict]] = None,
+                    scene_reuse: bool = False, scene_3d_step=None, scene_caps=None,
+                    save_ply: str = "") -> Dict[str, float]:
     """The whole-scene protocol over an iterator of scene dicts: per-view
     forward + routing, multi-view voting, KD-tree fill, and base/novel/hIoU
     meters for the three streams (suffixes "", "_2d", "_3d"), plus
-    scenes_per_sec over the n scenes. With `record`, one dict a scene is
-    appended: name, views, predictions, its IoU accumulators, kept, counter."""
+    scenes_per_sec over the n scenes. With `scene_reuse` each scene goes
+    through `run_scene_reuse` (`infer_step` from `make_reuse_infer_step`,
+    with `scene_3d_step` and `scene_caps`). With `record`, one dict a scene
+    is appended: name, views, predictions, its IoU accumulators, kept,
+    counter. With `save_ply`, each scene's fused predictions and its labels
+    are written there as `<name>_pred.ply` and `<name>_gt.ply`."""
     dev = resolve_device(device)
     split = cfg.category_split
     acc = {s: {k: np.zeros(cfg.test_classes, np.float64) for k in ("inter", "union", "target")}
@@ -122,8 +172,16 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
     t0 = time.time()
     for scene in scene_iter:
         info: Dict = {}
-        pred = run_scene(scene, infer_step, route_2d, statics, caps, cfg.test_classes,
-                         device=dev, record=info)
+        if scene_reuse:
+            from xmask3d_tpu_torch.engine.scene_reuse import run_scene_reuse
+
+            pred = run_scene_reuse(scene, scene_3d_step, infer_step, route_2d, statics, caps,
+                                   scene_caps, cfg.test_classes,
+                                   voxel_size=cfg.voxel_size, input_color=cfg.input_color,
+                                   device=dev, record=info)
+        else:
+            pred = run_scene(scene, infer_step, route_2d, statics, caps, cfg.test_classes,
+                             device=dev, record=info)
         per = {}
         for s in STREAMS:
             per[s] = evaluate_scene_predictions(
@@ -136,6 +194,13 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
         if record is not None:
             record.append({"name": scene["name"], "views": len(scene["views"]), "pred": pred,
                            "acc": per, **info})
+        if save_ply:
+            from xmask3d_tpu_torch.utils.visualization import save_colored_point_cloud
+
+            save_colored_point_cloud(os.path.join(save_ply, f"{scene['name']}_pred.ply"),
+                                     scene["coords"], pred["pred"])
+            save_colored_point_cloud(os.path.join(save_ply, f"{scene['name']}_gt.ply"),
+                                     scene["coords"], scene["labels"].astype(np.int64))
         logger.info(f"scene {scene['name']} done ({len(scene['views'])} views)")
     dt = time.time() - t0
     summary: Dict[str, float] = {}
@@ -175,7 +240,8 @@ def main(argv=None, device=None):
     if not args.synthetic:
         scenes, n = _scannet_scenes(cfg, caps, args)
     fused_gn = os.environ.get("XMASK3D_FUSED_GN", "0") == "1"
-    model = build_model(cfg, tiny=args.tiny, device=dev, fused_gn=fused_gn)
+    model = build_serving_model(cfg, tiny=args.tiny, device=dev, fused_gn=fused_gn,
+                                ckpt=args.ckpt, converted=args.converted)
     statics = build_statics(model, cfg, device=dev)
     infer_step, route_2d = make_infer_step(model, cfg)
 
@@ -204,8 +270,22 @@ def main(argv=None, device=None):
         n = args.num_scenes
         scenes = (synthetic_scene(caps, seed=100 + i, num_points=1200, num_views=3,
                                   num_classes=cfg.test_classes, **kw2) for i in range(n))
+    scene_3d_step = scene_caps = None
+    if args.scene_reuse:
+        from xmask3d_tpu_torch.engine.scene_reuse import (
+            make_reuse_infer_step,
+            make_scene_3d_step,
+            scene_caps_from_view_caps,
+        )
+
+        scene_caps = scene_caps_from_view_caps(caps)
+        scene_3d_step = make_scene_3d_step(model)
+        infer_step, route_2d = make_reuse_infer_step(model, cfg)
+        logger.info("scene reuse on: one 3D pass a scene")
     return run_eval_scenes(scenes, n, cfg=cfg, caps=caps, statics=statics, infer_step=infer_step,
-                           route_2d=route_2d, device=dev)
+                           route_2d=route_2d, device=dev, scene_reuse=args.scene_reuse,
+                           scene_3d_step=scene_3d_step, scene_caps=scene_caps,
+                           save_ply=args.save_ply)
 
 
 if __name__ == "__main__":

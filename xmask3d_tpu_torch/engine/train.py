@@ -41,6 +41,25 @@ from xmask3d_tpu_torch.utils.logging import MetricsWriter, get_logger
 
 logger = get_logger()
 
+# config keys the JAX trainer obeys and this one does not: what it does
+# instead, and the ROADMAP item that ports the key
+UNHONOURED_KEYS = {
+    "workers": "batches are built one after another on the host; batch prefetch is "
+               "ROADMAP A 3",
+    "mesh_shape": "the step runs on one device; distribution is ROADMAP A 6",
+    "donate_state": "the step updates parameters, masters and optimizer state in place "
+                    "whatever its value, so there is nothing to donate and no ROADMAP item",
+    "remat_backbone": "the SD backbone keeps its activations (no block remat); "
+                      "ROADMAP A 7",
+}
+
+
+def log_unhonoured_keys(cfg: Config) -> None:
+    """One warning for each key of UNHONOURED_KEYS the config sets."""
+    for key, why in UNHONOURED_KEYS.items():
+        if key in cfg:
+            logger.warning(f"config key {key} = {cfg[key]!r} is not honoured: {why}")
+
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("xmask3d_tpu_torch training")
@@ -124,6 +143,7 @@ def main(argv=None, device=None):
     dev = resolve_device(device)
     cfg = load_config(args.config, args.opts)
     caps = capacities_from_cfg(cfg)
+    log_unhonoured_keys(cfg)
     np.random.seed(cfg.manual_seed)
     torch.manual_seed(cfg.manual_seed)
 

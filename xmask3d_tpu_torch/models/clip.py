@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from xmask3d_tpu_torch.device import device_constant
 from xmask3d_tpu_torch.models.layers import Conv, LayerNorm
 
 
@@ -186,8 +187,11 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def preprocess(self, image: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(CLIP_PIXEL_MEAN, dtype=image.dtype, device=image.device)
-        std = torch.tensor(CLIP_PIXEL_STD, dtype=image.dtype, device=image.device)
+        dt, dev = image.dtype, image.device
+        mean = device_constant(("clip_pixel_mean", dt), dev,
+                               lambda: torch.tensor(CLIP_PIXEL_MEAN, dtype=dt))
+        std = device_constant(("clip_pixel_std", dt), dev,
+                              lambda: torch.tensor(CLIP_PIXEL_STD, dtype=dt))
         return (image - mean) / std
 
     def embed_text(self, tokens: torch.Tensor):

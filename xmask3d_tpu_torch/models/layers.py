@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.device import device_constant
+
 EPS = 1e-6
 
 
@@ -96,10 +98,10 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _weight_mat(n_in: int, n_out: int, kernel, antialias: bool, device) -> torch.Tensor:
+def _weight_mat(n_in: int, n_out: int, kernel, antialias: bool) -> torch.Tensor:
     """(n_in, n_out) resampling matrix with `jax.image.resize` semantics:
     half-pixel centres, weights renormalised to sum 1, zero where the sample
-    lies entirely outside the input."""
+    lies entirely outside the input. Built on the host."""
     scale = torch.tensor(n_out / n_in, dtype=torch.float32)
     inv = 1.0 / scale
     kscale = torch.clamp(inv, min=1.0) if antialias else torch.tensor(1.0)
@@ -111,7 +113,7 @@ def _weight_mat(n_in: int, n_out: int, kernel, antialias: bool, device) -> torch
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
 def resize(x: torch.Tensor, size: Tuple[int, int], dims: Sequence[int],
@@ -125,6 +127,7 @@ def resize(x: torch.Tensor, size: Tuple[int, int], dims: Sequence[int],
         n_in = y.shape[d]
         if n_in == n_out:
             continue
-        w = _weight_mat(n_in, n_out, kernel, antialias, y.device)
+        w = device_constant(("resize", n_in, n_out, method, antialias), y.device,
+                            lambda: _weight_mat(n_in, n_out, kernel, antialias))
         y = torch.movedim(torch.movedim(y, d, -1) @ w, -1, d)
     return y.to(dtype)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from xmask3d_tpu_torch.models.layers import LayerNorm, resize
-from xmask3d_tpu_torch.models.pixel_decoder import position_embedding_sine
+from xmask3d_tpu_torch.models.pixel_decoder import sine_embedding
 
 _MASKED = torch.finfo(torch.float32).min / 2
 
@@ -161,8 +161,8 @@ class ODISEMaskedTransformerDecoder(nn.Module):
         srcs, poss, sizes = [], [], []
         for i, f in enumerate(multi_scale_features):
             b, hh, ww, c = f.shape
-            pos = torch.from_numpy(position_embedding_sine(hh, ww, self.hidden_dim // 2))
-            poss.append(pos.to(f.device, f.dtype).reshape(1, hh * ww, c))
+            pos = sine_embedding(hh, ww, self.hidden_dim // 2, f.device)
+            poss.append(pos.to(f.dtype).reshape(1, hh * ww, c))
             srcs.append(f.reshape(b, hh * ww, c) + self.level_embed[i])
             sizes.append((hh, ww))
         b = multi_scale_features[0].shape[0]

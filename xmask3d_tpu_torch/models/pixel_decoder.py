@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.device import device_constant
 from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, LayerNorm, resize
 from xmask3d_tpu_torch.ops.deform_attn import ms_deform_attn
 
@@ -34,6 +35,23 @@ def position_embedding_sine(h: int, w: int, num_pos_feats: int = 128,
     pos_x = np.stack([np.sin(pos_x[..., 0::2]), np.cos(pos_x[..., 1::2])], axis=-1)
     pos_y = np.stack([np.sin(pos_y[..., 0::2]), np.cos(pos_y[..., 1::2])], axis=-1)
     return np.concatenate([pos_y.reshape(h, w, -1), pos_x.reshape(h, w, -1)], axis=-1)
+
+
+def sine_embedding(h: int, w: int, num_pos_feats: int, device) -> torch.Tensor:
+    """`position_embedding_sine` as a float32 tensor on `device`, built once."""
+    return device_constant(("sine_embedding", h, w, num_pos_feats), device,
+                           lambda: torch.from_numpy(position_embedding_sine(h, w, num_pos_feats)))
+
+
+def reference_points(shapes) -> np.ndarray:
+    """(sum h * w, 2) normalised (x, y) pixel centres of every level."""
+    ref = []
+    for hh, ww in shapes:
+        ys = (np.arange(hh, dtype=np.float32) + 0.5) / hh
+        xs = (np.arange(ww, dtype=np.float32) + 0.5) / ww
+        gy, gx = np.meshgrid(ys, xs, indexing="ij")
+        ref.append(np.stack([gx, gy], -1).reshape(hh * ww, 2))
+    return np.concatenate(ref, 0)
 
 
 def _offsets_init(heads: int, levels: int, points: int) -> np.ndarray:
@@ -75,8 +93,9 @@ class MSDeformAttnLayer(nn.Module):
         attn_w = torch.softmax(self.attention_weights(q).reshape(b, n, h, l * p), dim=-1)
         attn_w = attn_w.reshape(b, n, h, l, p)
         value = self.value_proj(src).reshape(b, n, h, c // h)
-        wh = torch.tensor([[ww, hh] for hh, ww in spatial_shapes], dtype=torch.float32,
-                          device=src.device)
+        wh = device_constant(
+            ("deform_level_wh", tuple(spatial_shapes)), src.device,
+            lambda: torch.tensor([[ww, hh] for hh, ww in spatial_shapes], dtype=torch.float32))
         loc = reference_points[:, :, None, :, None, :] + offsets.float() / wh[None, None, None, :, None, :]
         out = self.output_proj(ms_deform_attn(value, spatial_shapes, loc, attn_w.float()))
         src = self.norm1(src + out)
@@ -113,20 +132,15 @@ class MSDeformAttnPixelDecoder(nn.Module):
         for i, name in enumerate(self.names):
             x = getattr(self, f"input_norm_{i}")(getattr(self, f"input_proj_{i}")(features[name]))
             b, hh, ww, c = x.shape
-            pos = torch.from_numpy(position_embedding_sine(hh, ww, self.conv_dim // 2)).to(x.device)
+            pos = sine_embedding(hh, ww, self.conv_dim // 2, x.device)
             level_embed = getattr(self, f"level_embed_{i}")
             shapes.append((hh, ww))
             srcs.append(x.reshape(b, hh * ww, c))
             poss.append((pos.to(x.dtype).reshape(1, hh * ww, c) + level_embed).to(x.dtype))
         src = torch.cat(srcs, dim=1)
         pos = torch.cat([p.expand(s.shape) for p, s in zip(poss, srcs)], dim=1)
-        ref = []
-        for hh, ww in shapes:
-            ys = (np.arange(hh, dtype=np.float32) + 0.5) / hh
-            xs = (np.arange(ww, dtype=np.float32) + 0.5) / ww
-            gy, gx = np.meshgrid(ys, xs, indexing="ij")
-            ref.append(np.stack([gx, gy], -1).reshape(hh * ww, 2))
-        ref = torch.from_numpy(np.concatenate(ref, 0)).to(src.device)
+        ref = device_constant(("deform_reference_points", tuple(shapes)), src.device,
+                              lambda: torch.from_numpy(reference_points(shapes)))
         ref = ref[None, :, None, :].expand(src.shape[0], ref.shape[0], len(shapes), 2)
         for li in range(self.enc_layers):
             src = getattr(self, f"encoder_layer_{li}")(src, pos, ref, shapes)

@@ -12,12 +12,13 @@ loss stack. Submodule names follow the JAX parameter tree, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.device import category_columns
 from xmask3d_tpu_torch.losses import criterion as L
 from xmask3d_tpu_torch.losses.fuser import (
     FeatureMerger,
@@ -159,8 +160,10 @@ class XMask3D(nn.Module):
         binary_scores = torch.gather(binary_vox[..., 0], 1, ir)
         return {"imp_condition": imp_condition, "pred_3d": pred_3d, "binary_scores": binary_scores}
 
-    def _trunk(self, batch, statics):
-        three_d = self.run_3d(batch)
+    def _trunk(self, batch, statics, precomp_3d=None):
+        """3D branch (or the scene's precomputed `run_3d` outputs), SD
+        backbone, pixel and mask decoders."""
+        three_d = precomp_3d if precomp_3d is not None else self.run_3d(batch)
         img01 = batch["img"] / 255.0
         feats = self.backbone(img01, three_d["imp_condition"], statics["uncond_tokens"])
         mask_features, ms_feats = self.pixel_decoder(feats)
@@ -279,9 +282,13 @@ class XMask3D(nn.Module):
 
     # -- eval forward ------------------------------------------------------
     @torch.no_grad()
-    def eval_forward(self, batch: Dict[str, Any], statics: Dict[str, torch.Tensor]):
+    def eval_forward(self, batch: Dict[str, Any], statics: Dict[str, torch.Tensor],
+                     precomp_3d: Optional[Dict[str, torch.Tensor]] = None):
+        """One view's eval outputs. `precomp_3d` ({imp_condition, pred_3d,
+        binary_scores} at the view's point rows, as scene reuse gathers them
+        from one pass over the scene) takes the place of `run_3d`."""
         c = self.cfg
-        outputs = self._trunk(batch, statics)
+        outputs = self._trunk(batch, statics, precomp_3d)
         cat = self.category_embed(statics["text_embed_test"])
         text_embed, null_embed = cat["text_embed"], cat["null_embed"]
         pred_logits = cal_pred_logits(outputs["mask_embed"], text_embed, null_embed,
@@ -303,11 +310,12 @@ class XMask3D(nn.Module):
         is_base = binary_vote > c.binary_2d_thresh
 
         num_cls = c.num_test_classes
-        col = torch.arange(pred_logits.shape[-1], device=pred_logits.device)
-        base_cols = torch.isin(col, torch.tensor(list(c.base_category), device=col.device))
-        novel_cols = torch.isin(col, torch.tensor(list(c.novel_category), device=col.device))
-        neg = torch.full((), -1e10, dtype=pred_logits.dtype, device=pred_logits.device)
-        logits_novel = torch.where(base_cols | (col == num_cls), neg, pred_logits)
+        n_col, dev = pred_logits.shape[-1], pred_logits.device
+        base_cols = category_columns(n_col, c.base_category, dev)
+        novel_cols = category_columns(n_col, c.novel_category, dev)
+        null_col = category_columns(n_col, (num_cls,), dev)
+        neg = torch.full((), -1e10, dtype=pred_logits.dtype, device=dev)
+        logits_novel = torch.where(base_cols | null_col, neg, pred_logits)
         logits_base = torch.where(novel_cols, neg, pred_logits)
         modified = torch.where(is_base[..., None], logits_base, logits_novel)
         probs = torch.softmax(modified.float(), dim=-1)

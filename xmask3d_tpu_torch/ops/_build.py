@@ -34,12 +34,20 @@ _LOCK = threading.Lock()
 # Optional hook, None by default: when set, every kernel wrapper calls
 # RECORDER(name, args) with its checked arguments, all positional, before it
 # runs (kernel or plain version). `chip_smoke.py` records a view's calls so.
+# It is not called while a CUDA graph is being captured: what it does with
+# the arguments (copies, host reads) does not belong in the graph.
 RECORDER: Optional[Callable[[str, Tuple], None]] = None
 
 
 def record(name: str, *args) -> None:
-    if RECORDER is not None:
+    if RECORDER is not None and not _capturing():
         RECORDER(name, args)
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def nvcc_path() -> str:

@@ -36,12 +36,22 @@ Phases, each of which raises on failure:
      cycling 6 distinct ones through `make_scene_scan_step`, its votes equal
      to per-view eager dispatch, scenes/s and ms a view of both (runs scan,
      eager, eager, scan);
+     `bench`: `xmask3d_tpu_torch/tools/bench.py` at its defaults (3 scenes
+     of 30 views) in scan, per-view and include-host mode, in this process,
+     each printing its JSON line, with finite scenes/s;
      then it profiles one eager and one replayed view (device time by
      kernel, the device's idle share; the replayed view's launches read from
      the kernel names, since the wrappers' counters do not see replays), and
      only then takes each kernel's device-busy time on its recorded calls
      from the profiler (`device_ms`, per shape): once used, the profiler
-     slows every later launch on the host;
+     slows every later launch on the host; before that, `device_hierarchy`:
+     the counted views with the hierarchy built on the device inside
+     `make_infer_step`'s graph: the hierarchy equal to the host builder's in
+     sorted-key order, replayed views equal to eager and to the host-built
+     views in that row order (labels, coverage, routing), the label
+     agreement with the host-built views in their own row order; the
+     build's and K1's device ms under either hierarchy, and the bytes a view
+     copies in under either route;
   5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
      stages on kernel K4 (`fused_gn`): the same seeded weights, two
      synthetic scenes of 40000 points and 8 views each through the
@@ -52,8 +62,13 @@ Phases, each of which raises on failure:
      also timed beside the port's unfused stages, and its statistics
      kernels on their own); the `kernels` line takes K4's row from here;
      then `make_infer_step`'s graph is captured and the scenes run eager,
-     graph, graph, eager: the eager runs check every kernel's launches (K4's
-     statistics once per conv), that every bf16 K4 call took a tensor-core
+     then on the graph with the numpy and the C++ kernel-map builder in
+     turns (numpy, native, native, numpy), then eager; the graph runs'
+     per-view host time by stage is logged per builder (`host_pipeline`),
+     and `native_kmaps` holds the two builders equal on every view (and
+     whole scene) of these scenes with their host ms; the eager runs check
+     every kernel's launches (K4's statistics once per conv), that every
+     bf16 K4 call took a tensor-core
      variant, the votes, the fill and the summaries; the graph runs launch
      nothing outside their graph and equal the eager run exactly
      (predictions, votes, summaries); a replayed view is profiled for its
@@ -999,13 +1014,191 @@ def scene_scan(scan, model, cfg, caps, statics) -> dict:
     return report
 
 
+# the scene phase's runs (route, kernel-map builder): the graph route with
+# the native builder (the default) and the numpy one in turns
+SCENE_RUNS = (("eager", "native"), ("graph", "numpy"), ("graph", "native"), ("graph", "native"),
+              ("graph", "numpy"), ("eager", "native"))
+
+
+def _stats_ms(xs) -> dict:
+    xs = sorted(x * 1e3 for x in xs)
+    return {"median_ms": xs[len(xs) // 2], "min_ms": xs[0], "max_ms": xs[-1], "n": len(xs)}
+
+
+def host_pipeline(runs) -> dict:
+    """Each host stage of `run_scene` (`infer_cli.STAGES`) a view, per
+    kernel-map builder, over the given runs' views (median and range), and
+    the runs' order: the split of a scene view's host time."""
+    from xmask3d_tpu_torch.engine.infer_cli import STAGES
+
+    out = {"phase": "host_pipeline", "order": [r["builder"] for r in runs], "by_builder": {}}
+    for builder in dict.fromkeys(r["builder"] for r in runs):
+        recs = [rec for r in runs if r["builder"] == builder for rec in r["record"]]
+        stages = {k: _stats_ms([x for rec in recs for x in rec["host_seconds"][k]])
+                  for k in STAGES}
+        total = [sum(xs) for rec in recs for xs in zip(*(rec["host_seconds"][k] for k in STAGES))]
+        out["by_builder"][builder] = {"stages": stages, "view_total": _stats_ms(total)}
+    return out
+
+
+def device_hierarchy(model, cfg, caps, statics, views, table) -> None:
+    """The main path's views with `device_hierarchy=True`: the hierarchy
+    built on the device inside `make_infer_step`'s graph. The counts, set
+    to 0 before the capture, must see K1-K3 in it. Each view's device-built
+    hierarchy equals its host-built one with levels 1-4 in sorted-key order
+    (`to_key_order`), every leaf (level 0's maps as they are). Each replayed
+    view equals its eager body, and the host-built view in that row order
+    exactly on the labels, coverage and routing (the float outputs' largest
+    gaps logged); against the host-built view in its own row order, which
+    K1's split over a tile's live taps rounds differently at levels 1-4,
+    the float outputs' largest gaps and the share of valid points with
+    equal labels are logged. Then, from the profiler: the build's
+    device ms, K1's device ms over a view's calls under either hierarchy,
+    and a replayed view's launches; and the bytes a view copies in under
+    either route."""
+    import torch
+
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.graphs import flatten
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step
+    from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device, to_key_order
+
+    kw = dict(num_points=20000, image_size=(512, 512), mask_shape=tuple(cfg.mask_shape),
+              context_length=77, vocab_size=49408)
+    seeds = range(101, 100 + len(views))  # the main path's counted views
+    dviews = [synthetic_batch(1, caps, seed=s, device_hierarchy=True, **kw) for s in seeds]
+    copied = {route: nbytes(*flatten(synthetic_batch(1, caps, seed=101, device="cpu",
+                                                     device_hierarchy=d, **kw))[1])
+              for route, d in (("host", False), ("device", True))}
+    level_caps = caps.level_caps()
+    keyed = []
+    for dv, hv in zip(dviews, views[1:]):
+        host_h = hv["hierarchy"]
+        nums = [int(lv.num[0]) for lv in host_h.levels]
+        if any(n >= c for n, c in zip(nums[1:], level_caps[1:])):
+            raise AssertionError(f"a level overflows its capacity: {nums} of {level_caps}")
+        (sig_d, got), (sig_k, want) = (
+            flatten(build_hierarchy_on_device(dv["voxel_coords"], dv["voxel_num"], level_caps)),
+            flatten(to_key_order(host_h)))
+        if sig_d != sig_k or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the device-built hierarchy differs from the host-built one "
+                                 "in sorted-key order")
+        keyed.append(dict(hv, hierarchy=to_key_order(host_h)))
+    step, _ = make_infer_step(model, cfg)
+    reset_launches()
+    t0 = time.time()
+    step(dviews[0], statics)
+    torch.cuda.synchronize()
+    captured, capture_s = launches(), time.time() - t0
+    for name in EXPECTED_NONZERO:
+        if captured[name] == 0:
+            raise AssertionError(f"{name}: no launch in the device-hierarchy capture")
+    gaps = {"eager": [], "host_key_order": [], "host": []}
+    agree = {"pred": [], "pred_3d": []}
+    for dv, kv, hv in zip(dviews, keyed, views[1:]):
+        got = {k: v.clone() for k, v in step(dv, statics).items()}
+        ref = {"eager": step.fn(dv, statics), "host_key_order": step.fn(kv, statics),
+               "host": step.fn(hv, statics)}
+        torch.cuda.synchronize()
+        for name in ("eager", "host_key_order"):
+            for k in EXACT_KEYS:
+                if not torch.equal(got[k], ref[name][k]):
+                    raise AssertionError(f"{k}: the replayed device-hierarchy view differs from "
+                                         f"the {name} view")
+        for name in ("eager", "host_key_order"):
+            gaps[name].append(float_gap(got, ref[name]))
+        # not held: the 3D branch's global feature conditions the SD
+        # backbone, so K1's rounding at levels 1-4 reaches every 2D output
+        gaps["host"].append({k: float((got[k].float() - ref["host"][k].float()).abs().max())
+                             for k in FLOAT_KEYS})
+        pv = hv["point_valid"]
+        for k in agree:
+            agree[k].append(float((got[k] == ref["host"][k])[pv].float().mean()))
+    calls = {"host": {"sparse_conv": []}, "device": {"sparse_conv": []}}
+    for route, b in (("host", views[1]), ("device", dviews[0])):
+        with recording(calls[route]):
+            step.fn(b, statics)
+    k1 = table["sparse_conv"]["fn"]
+    coords, num = dviews[0]["voxel_coords"], dviews[0]["voxel_num"]
+    build_ms, k1_host_ms, k1_dev_ms = device_ms(
+        [(lambda c, n: build_hierarchy_on_device(c, n, level_caps), [(coords, num)]),
+         (k1, calls["host"]["sparse_conv"]), (k1, calls["device"]["sparse_conv"])], reps=3)
+    del calls
+    log({"phase": "device_hierarchy", "views": len(dviews), "capture_seconds": capture_s,
+         "launches_warmup_and_capture": captured, "graphs": step.graphs,
+         "hierarchy_equals_host_in_key_order": "every leaf of every view",
+         "exact_vs_eager_and_host_key_order": list(EXACT_KEYS),
+         "float_max_abs_diff": gaps, "label_agreement_vs_host_row_order": agree,
+         "build_device_ms": build_ms,
+         "k1_device_ms": {"host_hierarchy": k1_host_ms, "device_hierarchy": k1_dev_ms},
+         "bytes_copied_in_a_view": copied})
+    log(replayed_profile("device_hierarchy_profile", step, (dviews[0], statics),
+                         with_statistics(expected_launches(model.cfg))))
+    step.reset()
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with `values` set, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the port's bench at its defaults, one run a mode: scan, per-view dispatch
+# of the captured view body, and views built on the host in the timed window
+BENCH_MODES = (("scan", {}), ("per_view", {"BENCH_SCAN_VIEWS": "0"}),
+               ("include_host", {"BENCH_INCLUDE_HOST": "1"}))
+
+
+def bench_phase() -> None:
+    """`tools/bench.py` in each of BENCH_MODES at its defaults (3 scenes of
+    30 views at the bench's capacities), in this process; each mode prints
+    its own JSON line, which must hold a finite scenes/s. The counts, set
+    to 0 before each mode, see its eager warm-up and capture (replays count
+    nothing) and must show K1-K3."""
+    import gc
+    import math
+
+    import torch
+
+    from xmask3d_tpu_torch.tools import bench
+
+    results = {}
+    for name, env in BENCH_MODES:
+        reset_launches()
+        t0 = time.time()
+        with environ(BENCH_SIZE="full", **env):
+            line, votes = bench.main()
+        counts = launches()
+        if not (math.isfinite(line["value"]) and line["value"] > 0) or votes.sum() <= 0:
+            raise AssertionError(f"bench {name}: {line}, {int(votes.sum())} votes")
+        for kernel in EXPECTED_NONZERO:
+            if counts[kernel] == 0:
+                raise AssertionError(f"bench {name}: {kernel} never launched")
+        results[name] = dict(line, seconds=time.time() - t0, launches_warmup_and_capture=counts)
+        del votes
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"phase": "bench", "modes": results})
+
+
 def scene_phase(cfg, caps, table):
     """Whole scenes at full width with fused_gn: the model built again from
     the same seed, two synthetic scenes through `run_eval_scenes`. A warm-up
     run of the fullest view through the eager body records every kernel's
     calls, which are held against their plain versions (K1-K3 again, on
     this path's inputs). `make_infer_step`'s graph is then captured (its
-    counts read) and the scenes run four times, eager, graph, graph, eager:
+    counts read) and the scenes run six times (SCENE_RUNS: eager, the graph
+    with each kernel-map builder in turns, eager), the host stages of each
+    graph run's views logged by builder (`host_pipeline`):
     each eager run must launch every kernel its per-view count times over
     all views, vote once per kept view point, leave no scene point without
     a prediction and give finite summaries; each graph run must launch
@@ -1073,7 +1266,7 @@ def scene_phase(cfg, caps, table):
          "launches_warmup_and_capture": launches()})
 
     runs = []
-    for route in ("eager", "graph", "graph", "eager"):
+    for route, builder in SCENE_RUNS:
         record, variants = [], {}
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1081,13 +1274,13 @@ def scene_phase(cfg, caps, table):
         with counting_variants(table, variants):
             summary = run_eval_scenes(scenes, len(scenes), cfg=cfg, caps=caps, statics=statics,
                                       infer_step=body if route == "eager" else infer_step,
-                                      route_2d=route_2d, record=record)
+                                      route_2d=route_2d, record=record, builder=builder)
         seconds = time.time() - t0
-        runs.append({"route": route, "seconds": seconds, "summary": summary, "record": record,
-                     "launches": launches(), "variants": variants,
+        runs.append({"route": route, "builder": builder, "seconds": seconds, "summary": summary,
+                     "record": record, "launches": launches(), "variants": variants,
                      "peak": torch.cuda.max_memory_allocated()})
-        log({"phase": "scenes", "route": route, "scenes": len(scenes), "views": n_views,
-             "seconds": seconds, "seconds_per_scene": seconds / len(scenes),
+        log({"phase": "scenes", "route": route, "builder": builder, "scenes": len(scenes),
+             "views": n_views, "seconds": seconds, "seconds_per_scene": seconds / len(scenes),
              "host_ms_per_view": seconds * 1e3 / n_views, "peak_mem_bytes": runs[-1]["peak"],
              "launches": runs[-1]["launches"], "expected_per_view": expected,
              "variants": variants, "summary": summary, "kept": [r["kept"] for r in record],
@@ -1125,16 +1318,78 @@ def scene_phase(cfg, caps, table):
             same += [f"{a['name']} {k}" for k in a["pred"] if not (a["pred"][k] == b["pred"][k]).all()]
         if same:
             raise AssertionError(f"the {run['route']} run differs from the first eager run: {same}")
-    per_scene = {r: [run["seconds"] / len(scenes) for run in runs if run["route"] == r]
-                 for r in ("eager", "graph")}
+    per_scene = {f"{r}_{b}": [run["seconds"] / len(scenes) for run in runs
+                              if (run["route"], run["builder"]) == (r, b)]
+                 for r, b in dict.fromkeys(SCENE_RUNS)}
     log({"phase": "scenes_graph_vs_eager", "seconds_per_scene": per_scene,
+         "host_ms_per_view": {k: [t * len(scenes) * 1e3 / n_views for t in v]
+                              for k, v in per_scene.items()},
          "equal": "predictions, kept, counter and summaries of every run"})
+    log(host_pipeline([r for r in runs if r["route"] == "graph"]))
     log(profile_view(body, batch, statics))
     log(replayed_profile("scene_graph_profile", infer_step, (batch, statics),
                          with_statistics(expected)))
     row["launches"] = counts["gn_silu_conv"]
     infer_step.reset()
     return row, model, statics, scenes, per_scene
+
+
+def same_host_hierarchy(a, b) -> bool:
+    """Two `HostHierarchy`s equal leaf by leaf, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, list):
+            if len(x) != len(y) or not all(np.array_equal(u, v) and np.asarray(u).dtype ==
+                                           np.asarray(v).dtype for u, v in zip(x, y)):
+                return False
+        elif not (np.array_equal(x, y) and x.dtype == y.dtype):
+            return False
+    return True
+
+
+def native_kmaps(cfg, caps, scenes) -> None:
+    """The C++ kernel-map builder against the numpy one on every view of the
+    scene phase's scenes (at the view's capacities, coords as `collate_views`
+    clips them) and on each whole scene (at scene reuse's capacities, as
+    `scene_3d_batch` voxelizes it): bit for bit, in turns, with each
+    builder's host ms a hierarchy."""
+    import numpy as np
+
+    from xmask3d_tpu_torch.data.voxelizer import Voxelizer
+    from xmask3d_tpu_torch.engine.scene_reuse import scene_caps_from_view_caps
+    from xmask3d_tpu_torch.ops.sparse_conv import build_hierarchy
+
+    scene_caps = scene_caps_from_view_caps(caps)
+    jobs = [("view", np.clip(v["sample"].voxel_coords[: caps.max_voxels].astype(np.int32),
+                             0, 1023), caps.level_caps())
+            for sc in scenes for v in sc["views"]]
+    for sc in scenes:
+        coords = Voxelizer(cfg.voxel_size).voxelize(
+            sc["coords"], sc["colors"], np.zeros((len(sc["coords"]),), np.int64))[0]
+        jobs.append(("scene", coords[: scene_caps.max_voxels].astype(np.int32),
+                     scene_caps.level_caps()))
+    seconds = {kind: {"numpy": [], "native": []} for kind in ("view", "scene")}
+    voxels = {"view": [], "scene": []}
+    for i, (kind, coords, level_caps) in enumerate(jobs):
+        built = {}
+        for builder in ("numpy", "native") if i % 2 == 0 else ("native", "numpy"):
+            t0 = time.perf_counter()
+            built[builder] = build_hierarchy(coords, level_caps, builder=builder)
+            seconds[kind][builder].append(time.perf_counter() - t0)
+        if not same_host_hierarchy(built["native"], built["numpy"]):
+            raise AssertionError(f"native and numpy hierarchies differ on {kind} {i}")
+        voxels[kind].append(built["native"].num)
+    log({"phase": "native_kmaps", "equal": "every leaf of every view and scene",
+         "views": len(voxels["view"]), "scenes": len(voxels["scene"]),
+         "view_capacities": list(caps.level_caps()),
+         "scene_capacities": list(scene_caps.level_caps()),
+         "live_voxels_by_level": voxels,
+         "host_ms": {kind: {b: _stats_ms(ts) for b, ts in by.items()}
+                     for kind, by in seconds.items()}})
 
 
 def scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene) -> None:
@@ -1713,12 +1968,14 @@ def main() -> int:
     # host before any profiler is attached to the process
     infer_graph, scan = graph_main_path(model, cfg, caps, views, statics)
     scene_scan(scan, model, cfg, caps, statics)
+    bench_phase()
     log(profile_view(view_body, views[1], statics, votes, counter))
     log(replayed_profile("graph_profile", scan.step, (views[1], statics, votes, counter),
                          with_statistics(expected)))
     infer_graph.reset()
     scan.step.reset()
     del infer_graph, scan
+    device_hierarchy(model, cfg, caps, statics, views, table)
     # the same view recorded again (its calls were freed before the counted
     # views, which slow down beside ~2 GB of held tensors)
     calls = {name: [] for name, n in expected.items() if n}
@@ -1737,6 +1994,7 @@ def main() -> int:
 
     k4_row, model, statics, scenes, per_scene = scene_phase(cfg, caps, table)
     rows.append(k4_row)
+    native_kmaps(cfg, caps, scenes)
     scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene)
     del model, statics, scenes
     gc.collect()

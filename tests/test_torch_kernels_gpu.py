@@ -680,3 +680,105 @@ def _view_of(tree, v):
     from xmask3d_tpu_torch.engine.graphs import tree_map
 
     return tree_map(lambda t: t[v], tree)
+
+
+# --------------------------------------------------------------------------
+# the hierarchy built on the device, and prefetch beside a capture
+# --------------------------------------------------------------------------
+
+
+def test_device_hierarchy_on_the_card_equals_it_on_the_cpu(cuda):
+    """`build_hierarchy_on_device` on the card gives the CPU's hierarchy bit
+    for bit, level 0's maps equal the host builder's, and a CUDA graph of it
+    replays to the same leaves on new coords."""
+    from xmask3d_tpu_torch.engine.graphs import GraphStep, flatten
+    from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device
+
+    caps = (1024, 512, 256, 128, 64)
+    rng = np.random.RandomState(11)
+    coords = np.zeros((2, caps[0], 3), np.int32)
+    num = np.zeros((2,), np.int32)
+    for b, hi in enumerate((24, 1024)):
+        c = np.unique(rng.randint(0, hi, (900, 3)).astype(np.int32), axis=0)[: caps[0]]
+        coords[b, : len(c)], num[b] = c, len(c)
+    ct, nt = torch.from_numpy(coords), torch.from_numpy(num)
+    want = flatten(build_hierarchy_on_device(ct, nt, caps))[1]
+    got = flatten(build_hierarchy_on_device(ct.to(cuda), nt.to(cuda), caps))[1]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    host = tsc.build_hierarchy(coords[0, : num[0]], caps)
+    on_card = build_hierarchy_on_device(ct.to(cuda), nt.to(cuda), caps)
+    assert np.array_equal(on_card.kmap5[0].cpu().numpy(), host.kmap5)
+    assert np.array_equal(on_card.levels[0].kmap3[0].cpu().numpy(), host.kmap3[0])
+    step = GraphStep(lambda c, n: build_hierarchy_on_device(c, n, caps), cuda)
+    step(ct.to(cuda), nt.to(cuda))
+    swapped = (ct.flip(0).to(cuda), nt.flip(0).to(cuda))
+    replayed = [t.clone() for t in flatten(step(*swapped))[1]]
+    for g, w in zip(replayed, flatten(build_hierarchy_on_device(*swapped, caps))[1]):
+        assert torch.equal(g, w)
+    assert step.graphs == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_view_on_a_device_hierarchy_equals_eager(cuda, dtype):
+    """The tiny model's view with `device_hierarchy=True` (the hierarchy
+    built inside the graph) through `make_infer_step` equals its eager body,
+    as `test_captured_view_equals_eager` holds the host-built view, and
+    equals the host-built view with its levels in sorted-key order
+    (`to_key_order`) exactly on the labels; at capacities no level fills."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step
+    from xmask3d_tpu_torch.ops.hierarchy_device import to_key_order
+
+    cfg, model, statics = _tiny_serving(cuda, dtype)
+    step, _ = make_infer_step(model, cfg)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    caps = Capacities(512, 4096, 8)
+    kw = dict(num_points=400, image_size=(64, 64), mask_shape=(24, 32), context_length=16,
+              vocab_size=512, device=cuda)
+    for seed in (3, 4):
+        batch = synthetic_batch(1, caps, seed=seed, device_hierarchy=True, **kw)
+        assert "hierarchy" not in batch and batch["voxel_coords"].shape == (1, 4096, 3)
+        host = synthetic_batch(1, caps, seed=seed, **kw)
+        assert all(int(lv.num[0]) < c for lv, c in zip(host["hierarchy"].levels,
+                                                        caps.level_caps()))
+        got = {k: v.clone() for k, v in step(batch, statics).items()}
+        want = step.fn(batch, statics)
+        keyed = step.fn(dict(host, hierarchy=to_key_order(host["hierarchy"])), statics)
+        torch.cuda.synchronize()
+        for k in ("pred", "pred_3d", "covered_2d", "binary_pred"):
+            assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got[k], keyed[k]), k
+        for k in ("feat_2d", "text"):
+            err = float((got[k] - want[k]).abs().max())
+            assert err <= tol * max(1.0, float(want[k].abs().max())), (k, err)
+    assert step.graphs == 1
+
+
+def test_capture_while_prefetch_workers_build_batches(cuda):
+    """Prefetch workers build CPU tensors and make no CUDA call, so a CUDA
+    graph captured on the main thread while they run stays valid; the
+    batches they built, pinned and copied in here, replay like eager."""
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.data.prefetch import parallel_map_iterator, to_device
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.infer_cli import make_infer_step
+
+    cfg, model, statics = _tiny_serving(cuda, "bfloat16")
+    caps = Capacities(512, 256, 8)
+    kw = dict(num_points=400, image_size=(64, 64), mask_shape=(24, 32), context_length=16,
+              vocab_size=512)
+    built = parallel_map_iterator(lambda s: synthetic_batch(1, caps, seed=s, device="cpu", **kw),
+                                  iter(range(20, 32)), workers=4)
+    first = to_device(next(built), cuda)  # the pool is running from here on
+    step, _ = make_infer_step(model, cfg)
+    step(first, statics)  # warm-up and capture while the workers build
+    for cpu_batch in built:
+        batch = to_device(cpu_batch, cuda)
+        got = {k: v.clone() for k, v in step(batch, statics).items()}
+        want = step.fn(batch, statics)
+        torch.cuda.synchronize()
+        assert torch.equal(got["pred"], want["pred"])
+    assert step.graphs == 1

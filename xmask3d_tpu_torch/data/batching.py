@@ -2,13 +2,15 @@
 
 Each per-view sample is padded to configured capacities; the batch is a dict
 of tensors on the chosen device with validity masks, and `hierarchy` is a
-`SparseHierarchy` of tensors.
+`SparseHierarchy` of tensors (or, for a hierarchy built on the device,
+`voxel_coords` and `voxel_num`).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,19 +66,30 @@ def pack_targets(label_2d: np.ndarray, max_targets: int):
 
 
 def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
-                  grid_jitter_rng=None, hierarchy: bool = True) -> Dict[str, Any]:
+                  grid_jitter_rng=None, hierarchy: bool = True, device_hierarchy: bool = False,
+                  builder: str = "native", times: Optional[Dict[str, float]] = None
+                  ) -> Dict[str, Any]:
     """Pad and stack view samples into a fixed-shape batch of tensors on
     `device` (the GPU unless "cpu" is asked for). `grid_jitter_rng` (a numpy
     RandomState; training only) shifts the whole batch's voxel coords by
     one integer translation in [0, 16) a batch, which re-draws which voxels
-    pool together at every stride, as the JAX package does. Without
-    `hierarchy` the voxel hierarchy (the kernel maps, built in numpy) is
-    neither built nor in the batch: scene reuse runs no per-view 3D pass."""
+    pool together at every stride, as the JAX package does. Stride-1 coords
+    are clipped to [0, 1023] per axis, the device builder's key range.
+
+    The voxel hierarchy is built on the host by `builder` ("native" or
+    "numpy", `ops/sparse_conv.py` `build_hierarchy`) into `hierarchy`. With
+    `device_hierarchy` the batch ships only `voxel_coords` (B, V, 3) int32,
+    zero-padded, and `voxel_num` (B,) int32, and the model builds the
+    hierarchy on the device (`ops/hierarchy_device.py`). Without
+    `hierarchy` neither is in the batch: scene reuse runs no per-view 3D
+    pass. With `times`, the seconds spent building hierarchies are added to
+    its "hierarchy" entry."""
     device = resolve_device(device)
     jitter = None if grid_jitter_rng is None \
         else grid_jitter_rng.randint(0, 16, size=(1, 3)).astype(np.int32)
     p, v = caps.max_points, caps.max_voxels
-    hs, vox_feats, point_valid, tgt_labels, tgt_valid = [], [], [], [], []
+    hs, vox_coords, vox_num = [], [], []
+    vox_feats, point_valid, tgt_labels, tgt_valid = [], [], [], []
     fields: Dict[str, List[np.ndarray]] = {
         k: [] for k in ("inds_reconstruct", "labels_3d", "binary_label_3d", "x_label", "y_label")
     }
@@ -85,8 +98,14 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
         if jitter is not None:
             coords = coords + jitter
         coords = np.clip(coords, 0, 1023)
-        if hierarchy:
-            hs.append(build_hierarchy(coords, caps.level_caps()))
+        if hierarchy and device_hierarchy:
+            vox_coords.append(_pad1(coords, v))
+            vox_num.append(np.int32(len(coords)))
+        elif hierarchy:
+            t0 = time.perf_counter()
+            hs.append(build_hierarchy(coords, caps.level_caps(), builder=builder))
+            if times is not None:
+                times["hierarchy"] = times.get("hierarchy", 0.0) + time.perf_counter() - t0
         vox_feats.append(_pad1(s.voxel_feats.astype(np.float32), v))
         pv = np.zeros((p,), bool)
         pv[: min(len(s.inds_reconstruct), p)] = True
@@ -105,7 +124,12 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
     def t(arrs):
         return torch.from_numpy(np.stack(arrs)).to(device)
 
-    batch: Dict[str, Any] = {"hierarchy": stack_hierarchies(hs, device)} if hierarchy else {}
+    batch: Dict[str, Any] = {}
+    if hierarchy and device_hierarchy:
+        batch["voxel_coords"] = t(vox_coords)
+        batch["voxel_num"] = t(vox_num)
+    elif hierarchy:
+        batch["hierarchy"] = stack_hierarchies(hs, device)
     batch["voxel_feats"] = t(vox_feats)
     batch["point_valid"] = t(point_valid)
     for k, vals in fields.items():

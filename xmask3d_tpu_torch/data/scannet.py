@@ -295,7 +295,7 @@ class ScanNetViews:
             caption_tokens=caption_tokens,
         )
 
-    def get(self, index_long: int) -> ViewSample:
+    def get(self, index_long: int, rng: Optional[np.random.RandomState] = None) -> ViewSample:
         """One accepted view of scene index_long % len.
 
         train: random view sampling (data_loader.py:158-159). val/test:
@@ -304,7 +304,9 @@ class ScanNetViews:
         len(views)`, advance by 2 on every rejection (either acceptance
         rule) — so in-training validation sees the same view sequence as
         the reference for a given epoch. Set `.epoch` before validating
-        (reference train.py:321: `val_data.epoch = epoch - 1`)."""
+        (reference train.py:321: `val_data.epoch = epoch - 1`). Train views
+        are drawn from `rng`, by default the loader's own."""
+        rng = self.rng if rng is None else rng
         index = index_long % len(self.data_paths)
         locs, feats, labels = self._load_scene(index)
         name = self._scene_name(index)
@@ -318,7 +320,7 @@ class ScanNetViews:
                 img_dir = dirs[img_idx % len(dirs)]
                 img_idx += 2
             else:
-                img_dir = dirs[self.rng.randint(len(dirs))]
+                img_dir = dirs[rng.randint(len(dirs))]
             view = self._load_view(name, img_dir, locs)
             if view is None:
                 continue
@@ -327,11 +329,17 @@ class ScanNetViews:
                 return sample
         raise RuntimeError(f"no acceptable view for scene {index}")
 
-    def batch(self, indices: Sequence[int], device=None) -> Dict:
+    def batch(self, indices: Sequence[int], device=None, seed: Optional[int] = None) -> Dict:
         """The views of `indices` collated on `device`; the train split
-        draws one grid-alignment jitter a batch from the loader's rng."""
-        samples = [self.get(i) for i in indices]
-        jitter_rng = self.rng if self.cfg.split == "train" else None
+        draws its views and one grid-alignment jitter a batch from the
+        loader's rng, as the JAX loader does, or, with `seed`, from a
+        RandomState of that seed alone. Prefetch threads take the seeded
+        form: the loader's rng is drawn only in the thread that hands out
+        the seeds, so which batch gets which draws does not depend on the
+        threads' timing."""
+        rng = self.rng if seed is None else np.random.RandomState(seed)
+        samples = [self.get(i, rng) for i in indices]
+        jitter_rng = rng if self.cfg.split == "train" else None
         return collate_views(samples, self.caps, device=device, grid_jitter_rng=jitter_rng)
 
 

@@ -178,11 +178,15 @@ def synthetic_batch(
     context_length: int = 77,
     vocab_size: int = 49408,
     device=None,
+    device_hierarchy: bool = False,
 ) -> Dict:
+    """`batch_size` synthetic views from `seed`, collated on `device`; with
+    `device_hierarchy` the batch ships voxel coords and counts in place of
+    the hierarchy (`collate_views`)."""
     rng = np.random.RandomState(seed)
     samples = [
         synthetic_view_sample(rng, caps, num_points, num_classes, image_size,
                               mask_shape, context_length, vocab_size)
         for _ in range(batch_size)
     ]
-    return collate_views(samples, caps, device=device)
+    return collate_views(samples, caps, device=device, device_hierarchy=device_hierarchy)

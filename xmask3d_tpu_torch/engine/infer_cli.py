@@ -41,7 +41,7 @@ from xmask3d_tpu_torch.engine.builder import (
     capacities_from_cfg,
     data_tokenizer,
 )
-from xmask3d_tpu_torch.engine.graphs import GraphStep
+from xmask3d_tpu_torch.engine.graphs import GraphStep, tree_map
 from xmask3d_tpu_torch.engine.infer import (
     SceneVoter,
     ensemble_and_route,
@@ -122,49 +122,84 @@ def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = F
     return model
 
 
+# the host stages of a view in `run_scene`, in order; "collate" leaves out
+# the hierarchy build, which has its own line
+STAGES = ("collate", "hierarchy", "copy_in", "replay", "d2h", "nearest_covered_match",
+          "route_2d", "votes")
+
+
 def run_scene(scene, infer_step, route_2d, statics, caps, num_classes, device=None,
-              record: Optional[Dict] = None) -> Dict[str, np.ndarray]:
+              record: Optional[Dict] = None, builder: str = "native") -> Dict[str, np.ndarray]:
     """Multi-view voting over one scene dict (`ScanNetSceneViews.scene` or
     `synthetic_scene`): the fused-ensemble, 2D-branch and 3D-branch
     per-point predictions, with the per-view nearest-covered fill of the 2D
-    features. With `record`, it is filled with the view rows that voted
-    ("kept") and each stream's vote count ("counter")."""
+    features. Each view is collated on the host (its hierarchy built by
+    `builder`, "native" or "numpy") and copied in. With `record`, it is
+    filled with the view rows that voted ("kept"), each stream's vote count
+    ("counter") and each view's host seconds by stage ("host_seconds",
+    one list a stage of `STAGES`; on CUDA the device work a stage launches
+    is waited for inside it)."""
     dev = resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     voters = {k: SceneVoter(len(scene["coords"]), num_classes) for k in STREAMS}
+    seconds: Dict[str, List[float]] = {k: [] for k in STAGES}
     kept = 0
     for view in scene["views"]:
-        batch = collate_views([view["sample"]], caps, device=dev)
+        t = {"hierarchy": 0.0}
+        t0 = time.perf_counter()
+        batch = collate_views([view["sample"]], caps, device="cpu", builder=builder, times=t)
+        pv = batch["point_valid"][0].numpy()
+        t1 = time.perf_counter()
+        batch = tree_map(lambda x: x.to(dev), batch)
+        sync()
+        t2 = time.perf_counter()
         preds = infer_step(batch, statics)
-        pv = batch["point_valid"][0].cpu().numpy()
+        sync()
+        t3 = time.perf_counter()
+        covered = preds["covered_2d"][0].cpu().numpy()
+        t4 = time.perf_counter()
         # view row r holds the r-th visible scene point; vote by the mask
         rows, sids, keep = view_scene_ids(view["visible"], pv)
         coords_p = np.zeros((pv.shape[0], 3), np.float32)
         coords_p[rows] = scene["coords"][sids]
-        match = nearest_covered_match(coords_p, preds["covered_2d"][0].cpu().numpy(), pv)
+        match = nearest_covered_match(coords_p, covered, pv)
+        t5 = time.perf_counter()
         pred_2d = route_2d(preds["feat_2d"], torch.from_numpy(match)[None].to(dev),
                            preds["binary_pred"].float(), preds["text"], preds["logit_scale"])
-        for key, arr in (("pred", preds["pred"]), ("pred_2d", pred_2d), ("pred_3d", preds["pred_3d"])):
-            voters[key].add_view(sids[keep], arr[0].cpu().numpy()[rows[keep]])
+        sync()
+        t6 = time.perf_counter()
+        arrs = {k: a[0].cpu().numpy() for k, a in (("pred", preds["pred"]), ("pred_2d", pred_2d),
+                                                   ("pred_3d", preds["pred_3d"]))}
+        t7 = time.perf_counter()
+        for key, arr in arrs.items():
+            voters[key].add_view(sids[keep], arr[rows[keep]])
         kept += int(keep.sum())
+        t8 = time.perf_counter()
+        for stage, dt in zip(STAGES, (t1 - t0 - t["hierarchy"], t["hierarchy"], t2 - t1,
+                                      t3 - t2, t4 - t3 + t7 - t6, t5 - t4, t6 - t5, t8 - t7)):
+            seconds[stage].append(dt)
     if record is not None:
         record["kept"] = kept
         record["counter"] = {k: int(v.counter.sum()) for k, v in voters.items()}
+        record["host_seconds"] = seconds
     return {k: v.finalize(scene["coords"]) for k, v in voters.items()}
 
 
 def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, infer_step,
                     route_2d, device=None, record: Optional[List[Dict]] = None,
                     scene_reuse: bool = False, scene_3d_step=None, scene_caps=None,
-                    save_ply: str = "") -> Dict[str, float]:
+                    save_ply: str = "", builder: str = "native") -> Dict[str, float]:
     """The whole-scene protocol over an iterator of scene dicts: per-view
     forward + routing, multi-view voting, KD-tree fill, and base/novel/hIoU
     meters for the three streams (suffixes "", "_2d", "_3d"), plus
     scenes_per_sec over the n scenes. With `scene_reuse` each scene goes
     through `run_scene_reuse` (`infer_step` from `make_reuse_infer_step`,
-    with `scene_3d_step` and `scene_caps`). With `record`, one dict a scene
-    is appended: name, views, predictions, its IoU accumulators, kept,
-    counter. With `save_ply`, each scene's fused predictions and its labels
-    are written there as `<name>_pred.ply` and `<name>_gt.ply`."""
+    with `scene_3d_step` and `scene_caps`); otherwise each view's hierarchy
+    is built on the host by `builder` (`run_scene`). With `record`, one dict
+    a scene is appended: name, views, predictions, its IoU accumulators,
+    kept, counter and (not with scene reuse) the host seconds by stage.
+    With `save_ply`, each scene's fused predictions and its labels are
+    written there as `<name>_pred.ply` and `<name>_gt.ply`."""
     dev = resolve_device(device)
     split = cfg.category_split
     acc = {s: {k: np.zeros(cfg.test_classes, np.float64) for k in ("inter", "union", "target")}
@@ -181,7 +216,7 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
                                    device=dev, record=info)
         else:
             pred = run_scene(scene, infer_step, route_2d, statics, caps, cfg.test_classes,
-                             device=dev, record=info)
+                             device=dev, record=info, builder=builder)
         per = {}
         for s in STREAMS:
             per[s] = evaluate_scene_predictions(

@@ -14,6 +14,8 @@ Runs on the GPU; `main(argv, device="cpu")` runs the plain versions of the
 kernels on the CPU (with `--tiny` for a model of that size). Synthetic
 runs draw the train and validation streams from distinct seeds;
 `synthetic_points` sets the points of a synthetic view (2000 by default).
+On real data `workers` threads build the train batches ahead of the step
+(`make_data_iter`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from xmask3d_tpu_torch.config import Config, load_config
 from xmask3d_tpu_torch.data.batching import Capacities
+from xmask3d_tpu_torch.data.prefetch import parallel_map_iterator, to_device
 from xmask3d_tpu_torch.device import resolve_device
 from xmask3d_tpu_torch.engine.builder import (
     build_statics,
@@ -44,8 +47,6 @@ logger = get_logger()
 # config keys the JAX trainer obeys and this one does not: what it does
 # instead, and the ROADMAP item that ports the key
 UNHONOURED_KEYS = {
-    "workers": "batches are built one after another on the host; batch prefetch is "
-               "ROADMAP A 3",
     "mesh_shape": "the step runs on one device; distribution is ROADMAP A 6",
     "donate_state": "the step updates parameters, masters and optimizer state in place "
                     "whatever its value, so there is nothing to donate and no ROADMAP item",
@@ -82,7 +83,16 @@ def make_data_iter(cfg: Config, caps: Capacities, synthetic: bool, tiny: bool = 
                    split: str = "train", allow_hash_tokenizer: bool = False, device=None):
     """(batch iterator, samples per epoch or None for synthetic data, the
     ScanNetViews dataset or None). The trainer sets `.epoch` on the val
-    dataset before each validation pass (deterministic view iteration)."""
+    dataset before each validation pass (deterministic view iteration).
+
+    With `workers` > 0 the train split of real data is built by that many
+    threads (`data/prefetch.py`), as the JAX trainer does: this thread hands
+    out each batch's indices with one seed drawn from the loader's rng, the
+    batch draws its views and grid jitter from that seed alone, and the
+    workers build CPU tensors that this thread pins and copies to `device`.
+    So any worker count gives the same batches; `workers` 0 builds them
+    serially from the loader's rng, as the JAX loader does. Synthetic
+    streams and validation stay serial."""
     if synthetic:
         from xmask3d_tpu_torch.data.synthetic import synthetic_batch
 
@@ -119,14 +129,24 @@ def make_data_iter(cfg: Config, caps: Capacities, synthetic: bool, tiny: bool = 
     ds = ScanNetViews(ds_cfg, caps, tok, seed=cfg.manual_seed)
     order = np.random.RandomState(cfg.manual_seed).permutation(len(ds))
 
-    def it():
+    def index_iter():
         i = 0
         while True:
-            yield ds.batch([order[(i + k) % len(order)] for k in range(cfg.batch_size)],
-                           device=device)
+            yield [order[(i + k) % len(order)] for k in range(cfg.batch_size)]
             i += cfg.batch_size
 
-    return it(), len(order), ds
+    workers = int(cfg.get("workers", 0))
+    if workers > 0 and train:
+        dev = resolve_device(device)
+
+        def seeded():
+            for idx in index_iter():
+                yield idx, int(ds.rng.randint(2**31 - 1))
+
+        built = parallel_map_iterator(lambda a: ds.batch(a[0], device="cpu", seed=a[1]),
+                                      seeded(), workers)
+        return (to_device(b, dev) for b in built), len(order), ds
+    return (ds.batch(idx, device=device) for idx in index_iter()), len(order), ds
 
 
 def val_batch_count(val_samples, batch_size: int, val_batches_default: int = 4) -> int:

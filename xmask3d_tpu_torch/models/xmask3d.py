@@ -34,6 +34,7 @@ from xmask3d_tpu_torch.models.ldm_extractor import LDM_SD_V1, LdmConfig
 from xmask3d_tpu_torch.models.mask_decoder import CategoryEmbed, ODISEMaskedTransformerDecoder
 from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, mink_unet
 from xmask3d_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device
 from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
 from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
 from xmask3d_tpu_torch.utils.metrics import intersection_and_union
@@ -139,8 +140,14 @@ class XMask3D(nn.Module):
         """Sparse UNets -> per-point features, global embedding, binary
         scores. Both UNets' k5 stems run as ONE sparse conv with their
         kernels concatenated on the output axis (same contraction per
-        output column)."""
-        h = batch["hierarchy"]
+        output column). A batch without a `hierarchy` ships `voxel_coords`
+        and `voxel_num`, and the hierarchy is built here on the device
+        (`ops/hierarchy_device.py`), at capacities from the coords' rows."""
+        h = batch.get("hierarchy")
+        if h is None:
+            v0 = batch["voxel_coords"].shape[1]
+            caps = tuple(max(16, v0 // d) for d in (1, 2, 4, 8, 16))
+            h = build_hierarchy_on_device(batch["voxel_coords"], batch["voxel_num"], caps)
         dt = self.cfg.dtype
         feats = batch["voxel_feats"].to(dt)
         w34 = self.pc_decoder.MinkUNet_0.conv0.kernel

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from xmask3d_tpu_torch.data import native
 from xmask3d_tpu_torch.ops import _build
 
 # ---------------------------------------------------------------------------
@@ -66,7 +67,8 @@ class HostHierarchy:
 
 
 # ---------------------------------------------------------------------------
-# Host builder (numpy): exact coordinate hashing via int64 bit packing
+# Host builders: the C++ one (`data/native.py`) and the numpy one it is held
+# against, both exact over 20-bit-per-axis int64 keys
 # ---------------------------------------------------------------------------
 
 _BITS = 20
@@ -119,31 +121,57 @@ def build_hierarchy(
     capacities: Sequence[int],
     num_levels: int = 5,
     stem_kernel: int = 5,
+    builder: str = "native",
 ) -> HostHierarchy:
     """Full stride hierarchy + kernel maps for one voxelized sample.
 
     coords: (N, 3) non-negative, deduplicated voxel coords at stride 1.
     capacities: per-level static voxel capacities; voxels beyond a level's
-    capacity are dropped."""
+    capacity are dropped. builder: "native", the C++ hash-table builder
+    (`data/native.py`; it raises if it cannot be built), or "numpy", the
+    sorted-key builder it is held against. Both give the same maps bit for
+    bit, as the JAX package's `build_hierarchy` does."""
     if len(capacities) != num_levels:
         raise ValueError("one capacity per level")
+    if builder not in ("native", "numpy"):
+        raise ValueError(f"builder must be 'native' or 'numpy', got {builder!r}")
     coords = np.ascontiguousarray(coords[: capacities[0]], dtype=np.int32)
     level_coords: List[np.ndarray] = [coords]
     for lv in range(1, num_levels):
         s = 2**lv
+        if builder == "native":
+            level_coords.append(native.unique_parents(level_coords[-1], s, capacities[lv]))
+            continue
         parent = (level_coords[-1] // s) * s
         _, idx = np.unique(_pack(parent), return_index=True)
         level_coords.append(parent[np.sort(idx)][: capacities[lv]])
 
-    sorted_keys, orders = [], []
-    for c in level_coords:
-        keys = _pack(c)
-        order = np.argsort(keys, kind="stable").astype(np.int32)
-        sorted_keys.append(keys[order])
-        orders.append(order)
+    if builder == "native":
+        def make_kmap(in_lv, out_coords, offsets, cap):
+            return native.build_kmap(level_coords[in_lv], out_coords, offsets, cap)
 
-    def make_kmap(in_lv, out_coords, offsets, cap):
-        return _build_kmap(out_coords, sorted_keys[in_lv], orders[in_lv], offsets, cap)
+        def make_parent(lv, c, cap):
+            return native.parent_octant(c, level_coords[lv + 1], 2**lv, cap)
+    else:
+        sorted_keys, orders = [], []
+        for c in level_coords:
+            keys = _pack(c)
+            order = np.argsort(keys, kind="stable").astype(np.int32)
+            sorted_keys.append(keys[order])
+            orders.append(order)
+
+        def make_kmap(in_lv, out_coords, offsets, cap):
+            return _build_kmap(out_coords, sorted_keys[in_lv], orders[in_lv], offsets, cap)
+
+        def make_parent(lv, c, cap):
+            s2, stride, n = 2 ** (lv + 1), 2**lv, len(c)
+            pidx = _lookup(sorted_keys[lv + 1], orders[lv + 1], _pack((c // s2) * s2))
+            oct3 = (c // stride) % 2
+            pp = np.full((cap,), -1, dtype=np.int32)
+            oo = np.zeros((cap,), dtype=np.int32)
+            pp[:n] = pidx
+            oo[:n] = (oct3[:, 0] * 4 + oct3[:, 1] * 2 + oct3[:, 2]).astype(np.int32)
+            return pp, oo
 
     out = HostHierarchy([], [], [], [], [], [], [], None)
     for lv, c in enumerate(level_coords):
@@ -162,13 +190,7 @@ def build_hierarchy(
             out.down.append(make_kmap(
                 lv, level_coords[lv + 1], _offsets(2, stride), capacities[lv + 1]
             ))
-            s2 = 2 ** (lv + 1)
-            pidx = _lookup(sorted_keys[lv + 1], orders[lv + 1], _pack((c // s2) * s2))
-            oct3 = (c // stride) % 2
-            pp = np.full((cap,), -1, dtype=np.int32)
-            oo = np.zeros((cap,), dtype=np.int32)
-            pp[:n] = pidx
-            oo[:n] = (oct3[:, 0] * 4 + oct3[:, 1] * 2 + oct3[:, 2]).astype(np.int32)
+            pp, oo = make_parent(lv, c, cap)
             out.up_parent.append(pp)
             out.up_octant.append(oo)
     return out

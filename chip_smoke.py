@@ -80,6 +80,15 @@ Phases, each of which raises on failure:
      plain version (bf16 and fp32, per shape with variant, time and bound),
      the votes, the fill, finite summaries, s/scene beside phase 5's, and
      each replayed step's launches from the profiler;
+     `converted`: the same model (seed A) written as the three released
+     files (an SD v1 CompVis checkpoint, an open_clip state dict and a
+     b15n4.pth.tar-layout dict, fp32, `checkpoint/ref_format.py`), converted
+     by `python -m xmask3d_tpu_torch.tools.convert_checkpoints` in a
+     subprocess and loaded into a seed-B model by the CLI's `--converted`
+     route: every covered tensor bit-equal to seed A's, the uncovered ones
+     named (`CONVERTED_UNCOVERED`), then one view and one scene on the graph
+     route equal to seed A's exactly; the files' bytes, the conversion's
+     and the load's seconds, peak RSS and s/scene; the files removed;
   6. training at full width (`train_phase`): the serving models freed, the
      B15N4 model built for training (bf16 parameters, fp32 AdamW masters of
      the trainable groups, SD and CLIP frozen) and driven through the
@@ -91,8 +100,16 @@ Phases, each of which raises on failure:
      launches a step, the variants, every loss, each trainable group's
      gradient (both 3D UNets apart), that no frozen parameter has a
      gradient, and that the masters and the BatchNorm statistics moved;
-     a profiled step gives the device's busy time and each kernel's forward
-     and plain-backward device ms;
+     with the config's `remat_backbone` on, the UNet's K2 calls launch again
+     in the backward (its checkpointed blocks recompute);
+     `train_remat_*`: one forward and backward with remat off and on (the
+     same weights, batch and draws, deterministic algorithms): losses and
+     every trainable leaf's gradient bit-equal, launches; the default
+     mode's run-to-run spread of the gradient; two steps each way
+     for ms a step; one step at batch 8 each way for peak bytes (remat off
+     may not fit, which is logged); a profiled step each way gives the
+     device's busy time and each kernel's forward and plain-backward
+     device ms;
   7. the tiny model on the card (fp32, kernels) against the same model on
      the CPU (plain versions), unfused and with `fused_gn`, and one training
      step of it, losses and gradients leaf by leaf.
@@ -105,6 +122,7 @@ result, without CUDA or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import gc
@@ -113,6 +131,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "scannet", "xmask3d_scannet_B15N4.yaml")
@@ -174,6 +193,17 @@ def expected_launches(mc) -> dict:
     # K3: one sampling call per deformable encoder layer
     return {"sparse_conv": k1, "flash_attention": k2, "deform_attn": mc.pixel_enc_layers,
             "gn_silu_conv": k4}
+
+
+def expected_train_launches(mc) -> dict:
+    """A training step's launches: the forward's, and with `remat_backbone`
+    the UNet's attention again in the backward (each checkpointed
+    SpatialTransformer recomputes its two K2 calls; the VAE's blocks are not
+    checkpointed there, since none of their inputs needs a gradient)."""
+    n = expected_launches(mc)
+    if mc.remat_backbone:
+        n["flash_attention"] += n["flash_attention"] - 2  # all but the VAE's two
+    return n
 
 
 # --------------------------------------------------------------------------
@@ -1492,11 +1522,177 @@ def scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene) -> No
 
 
 # --------------------------------------------------------------------------
+# released weights: files in the released layouts, converted, served
+# --------------------------------------------------------------------------
+
+# where the converted phase writes its files (git-ignored; removed after)
+CONVERTED_DIR = os.path.join(ROOT, "_converted")
+# tensors of the model no released file holds, and why
+CONVERTED_UNCOVERED = {
+    "params/backbone/feature_extractor/ldm_extractor/shared_noise":
+        "the SD extractor's fixed noise: the reference draws it at construction from a fixed "
+        "seed and saves it in no file; the port draws it from the model's seed, so the "
+        "served model takes the writer's noise before its outputs are compared",
+}
+# tensors the converters write as a constant rather than from a file
+CONVERTED_CONSTANT = {
+    "params/backbone/feature_extractor/ldm_extractor/text_encoder/text_projection":
+        "SD's text encoder has no projection: the converter writes the identity, and the SD "
+        "path reads the encodings before it",
+}
+
+
+def _flat_tensors(model) -> dict:
+    """{"<collection>/<jax path>": tensor} of a port model (the weight
+    bridge's names)."""
+    from xmask3d_tpu_torch.checkpoint.from_jax import bridge_tensors
+
+    return {f"{b.collection}/{b.path}": b.tensor for b in bridge_tensors(model)}
+
+
+def converted_phase(model, cfg, caps, scenes, view) -> None:
+    """Serving released weights without JAX or yaml: the scene phase's model
+    (seed A, fused_gn) written as the three released files
+    (`checkpoint/ref_format.py`: an SD v1 CompVis checkpoint, an open_clip
+    state dict and a b15n4.pth.tar-layout dict, fp32), converted by
+    `python -m xmask3d_tpu_torch.tools.convert_checkpoints` in a subprocess,
+    loaded into a seed-B model by the CLI's `--converted` route
+    (`build_serving_model`). Every tensor the files cover must equal seed
+    A's bit for bit after the bf16 cast; the ones they do not cover are
+    named and must be in CONVERTED_UNCOVERED (the served model then takes
+    seed A's), the converters' constants in CONVERTED_CONSTANT. Then, with
+    the counts set to 0, one main-path view through `make_infer_step`'s
+    graph and one synthetic scene through `run_eval_scenes` on the graph
+    route: the served model's outputs must equal seed A's exactly (no kernel
+    of the path adds in a run-dependent order). Logs the files' bytes, the
+    conversion's and the load's seconds, peak RSS, s/scene; removes the
+    files."""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from xmask3d_tpu_torch.checkpoint.ref_format import write_released
+    from xmask3d_tpu_torch.engine.builder import build_statics
+    from xmask3d_tpu_torch.engine.infer_cli import (
+        build_serving_model, make_infer_step, run_eval_scenes)
+
+    shutil.rmtree(CONVERTED_DIR, ignore_errors=True)
+    os.makedirs(CONVERTED_DIR)
+    try:
+        free = shutil.disk_usage(CONVERTED_DIR).free
+        t0 = time.time()
+        paths = write_released(model, CONVERTED_DIR)
+        write_s = time.time() - t0
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+        npz = os.path.join(CONVERTED_DIR, "converted.npz")
+        # `python -m xmask3d_tpu_torch.tools.convert_checkpoints ...`, its
+        # resident bytes sampled every 50 ms from /proc/self/statm (getrusage
+        # would count the parent's pages at the fork)
+        code = ("import os, runpy, threading, time\n"
+                "peak = [0]\n"
+                "def watch():\n"
+                "    while True:\n"
+                "        pages = int(open('/proc/self/statm').read().split()[1])\n"
+                "        peak[0] = max(peak[0], pages * os.sysconf('SC_PAGE_SIZE'))\n"
+                "        time.sleep(0.05)\n"
+                "threading.Thread(target=watch, daemon=True).start()\n"
+                "runpy.run_module('xmask3d_tpu_torch.tools.convert_checkpoints', "
+                "run_name='__main__', alter_sys=True)\n"
+                "print('rss_peak_bytes', peak[0])\n")
+        cmd = [sys.executable, "-c", code, "--xmask3d", paths["xmask3d"], "--sd", paths["sd"],
+               "--clip", paths["clip"], "--out", npz]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        convert_s = time.time() - t0
+        if r.returncode != 0:
+            raise AssertionError(
+                f"the conversion tool failed: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+        child_rss = int(r.stdout.split("rss_peak_bytes")[-1].split()[0]) or "not measured"
+        npz_bytes = os.path.getsize(npz)
+        for p in paths.values():
+            os.remove(p)
+        t0 = time.time()
+        served = build_serving_model(cfg, fused_gn=True, converted=npz, seed=1)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        with np.load(npz) as f:
+            keys = set(f.files)
+        os.remove(npz)
+    finally:
+        shutil.rmtree(CONVERTED_DIR, ignore_errors=True)
+    self_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024  # the whole run's
+
+    want, got = _flat_tensors(model), _flat_tensors(served)
+    uncovered = sorted(set(got) - keys)
+    differ = [k for k in sorted(keys & set(got)) if k not in CONVERTED_CONSTANT
+              and not (got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))]
+    log({"phase": "converted_load", "file_bytes": sizes, "npz_bytes": npz_bytes,
+         "disk_free_bytes": free, "write_seconds": write_s, "convert_seconds": convert_s,
+         "load_seconds": load_s, "convert_stdout": r.stdout.strip().splitlines()[-5:-1],
+         "peak_rss_bytes": {"conversion": child_rss, "this_process_so_far": self_rss},
+         "tensors": len(got), "covered": len(keys & set(got)), "npz_keys": len(keys),
+         "uncovered": uncovered, "uncovered_why": CONVERTED_UNCOVERED,
+         "constant": sorted(keys & set(CONVERTED_CONSTANT)), "constant_why": CONVERTED_CONSTANT,
+         "differ": differ[:10]})
+    if keys - set(got):
+        raise AssertionError(
+            f"converted tensors with no destination: {sorted(keys - set(got))[:5]}")
+    unexplained = sorted(set(uncovered) - set(CONVERTED_UNCOVERED))
+    if differ or unexplained:
+        raise AssertionError(f"converted tensors differ from seed A's: {differ[:5]}; uncovered "
+                             f"and unexplained: {unexplained}")
+    with torch.no_grad():
+        for k in uncovered:
+            got[k].copy_(want[k])
+
+    outs, records, seconds = [], [], []
+    expected = expected_launches(model.cfg)
+    for m in (model, served):
+        statics = build_statics(m, cfg)
+        step, route_2d = make_infer_step(m, cfg)
+        if m is served:
+            reset_launches()  # the served model's path: one view, one scene
+        outs.append({k: v.clone() for k, v in step(view, statics).items()})
+        record = []
+        t0 = time.time()
+        run_eval_scenes(scenes[:1], 1, cfg=cfg, caps=caps, statics=statics, infer_step=step,
+                        route_2d=route_2d, record=record)
+        seconds.append(time.time() - t0)
+        records.append(record[0])
+        step.reset()
+        del step, statics
+    counts = launches()
+    gaps = {k: float((outs[1][k].float() - outs[0][k].float()).abs().max())
+            for k in outs[0] if outs[0][k].is_floating_point()}
+    apart = [k for k in outs[0] if not torch.equal(outs[1][k], outs[0][k])]
+    apart += [f"scene {s}" for s in records[0]["pred"]
+              if not (records[1]["pred"][s] == records[0]["pred"][s]).all()]
+    apart += ["scene votes"] if (records[1]["kept"], records[1]["counter"]) != \
+        (records[0]["kept"], records[0]["counter"]) else []
+    log({"phase": "converted_serve", "launches": counts, "expected_per_view": expected,
+         "view_keys": sorted(outs[0]), "float_max_abs_diff": gaps, "apart": apart,
+         "scene_views": records[1]["views"], "kept": records[1]["kept"],
+         "seconds_per_scene": {"seed_a": seconds[0], "converted": seconds[1]}})
+    if apart:
+        raise AssertionError(f"the converted model's outputs differ from seed A's: {apart}")
+    missing = [k for k in ("sparse_conv", "flash_attention", "deform_attn", "gn_silu_conv")
+               if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the converted path: {missing}")
+    del served
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
 
 # a training step: two views of the bench's capacities, 20000 points each
 TRAIN_BATCH, TRAIN_STEPS = 2, 3
+# the larger batch at which remat's peak memory is read
+REMAT_BATCH = 8
 # the wrappers' autograd Functions, by the name of their backward nodes
 BACKWARD_NODES = {"sparse_conv": "_SparseConvBackward", "flash_attention": "_AttentionBackward",
                   "deform_attn": "_DeformAttnBackward", "gn_silu_conv": "_GnSiluConvBackward"}
@@ -1509,14 +1705,15 @@ BACKWARD_NODES = {"sparse_conv": "_SparseConvBackward", "flash_attention": "_Att
 TRAIN_TOL = {"loss": 2e-4, "grad_l2": 1e-2, "grad_max": 3e-2, "grad_zero": 1e-6, "stats": 1e-5}
 
 
-def train_batch(cfg, caps, seed, device=None):
-    """A synthetic training batch of TRAIN_BATCH views at full size. Its
+def train_batch(cfg, caps, seed, device=None, batch=None):
+    """A synthetic training batch of `batch` (TRAIN_BATCH) views at full size. Its
     base/novel labels are drawn per point, so no mask would be novel- or
     base-dominant and loss_3d_contra would be 0: view 0 is made all novel
     and the others all base, so the term carries gradient."""
     from xmask3d_tpu_torch.data.synthetic import synthetic_batch
 
-    b = synthetic_batch(TRAIN_BATCH, caps, seed=seed, num_points=20000, image_size=(512, 512),
+    b = synthetic_batch(batch or TRAIN_BATCH, caps, seed=seed, num_points=20000,
+                        image_size=(512, 512),
                         mask_shape=tuple(cfg.mask_shape), context_length=77, vocab_size=49408,
                         device=device)
     b["binary_label_3d"][0] = 0.0
@@ -1655,6 +1852,7 @@ def train_phase(cfg, caps, table) -> None:
     from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
     from xmask3d_tpu_torch.engine.train_step import (
         create_train_state, make_optimizer, make_train_step)
+    from xmask3d_tpu_torch.models.layers import set_remat
     from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm
 
     t0 = time.time()
@@ -1675,9 +1873,11 @@ def train_phase(cfg, caps, table) -> None:
          "live_voxels": [[int(n) for n in b["hierarchy"].levels[0].num] for b in batches],
          "live_points": [int(b["point_valid"].sum()) for b in batches],
          "targets": [int(b["target_valid"].sum()) for b in batches]})
-    expected = expected_launches(mc)
+    expected = expected_train_launches(mc)
     if expected["gn_silu_conv"]:
         raise AssertionError("the training step runs the VAE unfused (fused_gn off)")
+    if not mc.remat_backbone:
+        raise AssertionError("the config's remat_backbone did not reach the model")
 
     # warm-up step, recording every kernel call of its forward pass
     calls = {name: [] for name, n in expected.items() if n}
@@ -1770,9 +1970,190 @@ def train_phase(cfg, caps, table) -> None:
         raise AssertionError(f"masters moved {moved}, BatchNorms moved {bn_moved} of {len(bns)}")
     del masters, stats, step_metrics
 
-    log(profile_step(lambda: step(state, batches[-1], statics, 1.0)))
+    remat_phase(model, state, step, batches, statics, cfg, caps, labels)
+    for on in (True, False):
+        set_remat(model, on)
+        log({**profile_step(lambda: step(state, batches[-1], statics, 1.0)), "remat": on})
+    set_remat(model, True)
     del model, state, statics, batches
     torch.cuda.empty_cache()
+
+
+# autograd nodes whose CUDA backward adds with atomics in the default mode:
+# gather's (a scatter-add), advanced indexing's (index_put_ with accumulate),
+# and the kernels' Functions, whose plain VJPs run gathers inside
+ATOMIC_BACKWARD = ("GatherBackward", "IndexBackward", "IndexSelectBackward",
+                   "EmbeddingBackward", "_SparseConvBackward", "_DeformAttnBackward")
+
+
+def backward_nodes(loss) -> dict:
+    """{node type: count} of the nodes of `loss`'s autograd graph named in
+    ATOMIC_BACKWARD."""
+    seen, todo, out = set(), [loss.grad_fn], collections.Counter()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        name = type(fn).__name__
+        if name.startswith(ATOMIC_BACKWARD):
+            out[name] += 1
+        todo.extend(f for f, _ in fn.next_functions)
+    return out
+
+
+def remat_phase(model, state, step, batches, statics, cfg, caps, labels) -> None:
+    """`remat_backbone` on the card. One forward and backward of batch 2
+    with remat off and on, the same weights, batch and point draws, under
+    `torch.use_deterministic_algorithms` (the plain backward's scatter-adds
+    and the point sampler's backward otherwise add in a run-dependent
+    order): the losses and every leaf's gradient bit-equal, the launches
+    the forward's plus, with remat, the UNet's K2 calls recomputed. Then
+    remat off twice in the default mode, each run against the other, for
+    the run-to-run spread of the gradient (logged, not held), beside what
+    reads its cause: whether the two runs' losses are equal, the gradient
+    norms of the leaves that move most against the median leaf's, and the
+    backward's nodes that add with atomics on the card (a gather's backward
+    is a scatter-add; the kernels' plain VJPs run gathers inside their
+    Functions). Then two optimizer steps each way (off,
+    on, on, off) for ms a step and peak bytes, and one step at batch 8 each
+    way for peak bytes (remat off may not fit: that is logged, not
+    raised)."""
+    import torch
+
+    from xmask3d_tpu_torch.engine.train_step import weight_losses
+    from xmask3d_tpu_torch.models.layers import set_remat
+    from xmask3d_tpu_torch.ops.point_sample import point_draws
+
+    mc = model.cfg
+    b = batches[1]
+    dev = b["img"].device
+    n_blocks = set_remat(model, False)
+
+    def fwd_bwd(on, nodes=None):
+        set_remat(model, on)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        draws = point_draws(gen, mc.dec_layers + 1, b["target_labels"].shape[0],
+                            b["target_labels"].shape[1], mc.num_points, mc.oversample_ratio,
+                            mc.importance_sample_ratio, device=dev)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, _ = model(b, statics, train=True, draws=draws)
+        total = weight_losses(losses, dict(cfg.loss_weight), mc.class_weight, mc.mask_weight,
+                              mc.dice_weight, contra_on=1.0)
+        if nodes is not None:
+            nodes.update(backward_nodes(total))
+        total.backward()
+        torch.cuda.synchronize()
+        out = {"peak": torch.cuda.max_memory_allocated(), "launches": launches(),
+               "losses": {k: v.detach().clone() for k, v in losses.items()},
+               "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                         if p.grad is not None}}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def rel_l2(got, want):
+        return {n: float((got[n].float() - w.float()).norm() / w.float().norm().clamp(min=1e-30))
+                for n, w in want.items() if not n.endswith("k_proj.bias")}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            off, on = fwd_bwd(False), fwd_bwd(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # ops with no deterministic implementation (warn_only names them)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    bad = [f"loss {k}" for k in off["losses"] if not torch.equal(on["losses"][k], off["losses"][k])]
+    if off["grads"].keys() != on["grads"].keys() \
+            or any(labels[n] == "frozen" for n in off["grads"]):
+        bad.append("the two runs have gradients on different or frozen parameters")
+    bad += [n for n, g in off["grads"].items() if not torch.equal(on["grads"].get(n, g * 0), g)]
+    expect_on, expect_off = expected_train_launches(mc), expected_launches(mc)
+    for name in ("sparse_conv", "flash_attention", "deform_attn"):
+        if on["launches"][name] != expect_on[name] or off["launches"][name] != expect_off[name]:
+            bad.append(f"{name}: launches {off['launches'][name]} / {on['launches'][name]}, "
+                       f"expected {expect_off[name]} / {expect_on[name]}")
+    n_leaves = len(off["grads"])
+    log({"phase": "train_remat_check", "batch": TRAIN_BATCH, "remat_blocks": n_blocks,
+         "deterministic_algorithms": True, "grad_leaves": n_leaves,
+         "losses_and_grads_bit_equal": not bad,
+         "no_deterministic_implementation": nondeterministic,
+         "peak_bytes_deterministic": {"off": off["peak"], "on": on["peak"]},
+         "launches": {"off": off["launches"], "on": on["launches"]},
+         "loss_total": float(weight_losses(off["losses"], dict(cfg.loss_weight)))})
+    del off, on
+    if bad:
+        raise AssertionError("remat on against off: " + "; ".join(bad[:10]))
+
+    # the default mode: two runs without remat, each against the other
+    nodes = collections.Counter()
+    first, second = fwd_bwd(False, nodes), fwd_bwd(False)
+    spread = rel_l2(second["grads"], first["grads"])
+    norms = {n: float(g.float().norm()) for n, g in first["grads"].items() if n in spread}
+    median_norm = sorted(norms.values())[len(norms) // 2]
+    worst = sorted(spread, key=lambda n: -spread[n])[:5]
+    whole = float(torch.sqrt(sum(((second["grads"][n].float() - first["grads"][n].float())
+                                  .norm() ** 2) for n in spread))
+                  / torch.sqrt(sum(first["grads"][n].float().norm() ** 2 for n in spread)))
+    log({"phase": "train_remat_default_mode", "batch": TRAIN_BATCH, "remat": False,
+         "compares": "two default-mode runs, the second against the first",
+         "losses_bit_equal": all(torch.equal(second["losses"][k], v)
+                                 for k, v in first["losses"].items()),
+         "rel_l2": {"max": spread[worst[0]],
+                    "median": sorted(spread.values())[len(spread) // 2],
+                    "whole_gradient": whole,
+                    "bit_equal_leaves": sum(v == 0 for v in spread.values())},
+         "median_leaf_grad_norm": median_norm,
+         "worst": [{"leaf": n, "rel_l2": spread[n], "grad_norm": norms[n],
+                    "diff_norm": spread[n] * norms[n]} for n in worst],
+         "atomic_add_backward_nodes": dict(nodes)})
+    del first, second
+
+    timing = {"off": [], "on": []}
+    peaks = {"off": [], "on": []}
+    for i, flag in enumerate((False, True, True, False)):
+        set_remat(model, flag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        step(state, batches[1 + i % TRAIN_STEPS], statics, 1.0)
+        torch.cuda.synchronize()
+        timing["on" if flag else "off"].append((time.time() - t0) * 1e3)
+        peaks["on" if flag else "off"].append(torch.cuda.max_memory_allocated())
+    log({"phase": "train_remat_steps", "batch": TRAIN_BATCH, "order": "off, on, on, off",
+         "step_ms": timing, "peak_bytes": peaks})
+
+    big = train_batch(cfg, caps, seed=400, batch=REMAT_BATCH)
+    out = {}
+    for flag in (True, False):
+        set_remat(model, flag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            step(state, big, statics, 1.0)
+            torch.cuda.synchronize()
+            out["on" if flag else "off"] = {"step_ms": (time.time() - t0) * 1e3,
+                                            "peak_bytes": torch.cuda.max_memory_allocated()}
+        except torch.cuda.OutOfMemoryError as e:
+            if flag:
+                raise
+            model.zero_grad(set_to_none=True)
+            out["off"] = {"fits": False, "error": str(e).splitlines()[0][:200],
+                          "peak_bytes_before_failing": torch.cuda.max_memory_allocated()}
+    set_remat(model, True)
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "train_remat_batch", "batch": REMAT_BATCH, **out,
+         "card_bytes": torch.cuda.get_device_properties(0).total_memory})
 
 
 def tiny_train_check(cfg_path) -> dict:
@@ -1996,6 +2377,10 @@ def main() -> int:
     rows.append(k4_row)
     native_kmaps(cfg, caps, scenes)
     scene_reuse_phase(model, cfg, caps, statics, scenes, table, per_scene)
+    converted_phase(model, cfg, caps, scenes,
+                    synthetic_batch(1, caps, seed=101, num_points=20000, image_size=(512, 512),
+                                    mask_shape=tuple(cfg.mask_shape), context_length=77,
+                                    vocab_size=49408))
     del model, statics, scenes
     gc.collect()
     torch.cuda.empty_cache()

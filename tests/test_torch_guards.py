@@ -1,6 +1,7 @@
 """Guards of the port's ground rules.
 
-- The port and `chip_smoke.py` import neither JAX nor the JAX package.
+- The port and `chip_smoke.py` import neither JAX nor the JAX package; the
+  conversion tool runs where neither they nor yaml can be imported.
 - Entry points run on the GPU unless the caller asks for the CPU; without a
   GPU they raise instead of falling back, and `chip_smoke.py` exits
   non-zero without printing a result.
@@ -77,6 +78,41 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env=env, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_conversion_cli_runs_without_yaml_jax_or_the_jax_package(tmp_path):
+    """`python -m xmask3d_tpu_torch.tools.convert_checkpoints` in a fresh
+    interpreter where yaml, jax and every xmask3d_tpu module are
+    unimportable, on tiny files in the released layouts: it writes its npz
+    and loads none of them."""
+    from test_torch_convert import write_tiny_released
+
+    paths = write_tiny_released(tmp_path)
+    out = str(tmp_path / "converted.npz")
+    blocked = FORBIDDEN + ("yaml",)
+    argv = ["convert_checkpoints", "--xmask3d", paths["xmask3d"], "--sd", paths["sd"],
+            "--clip", paths["clip"], "--out", out]
+    code = (
+        "import runpy, sys\n"
+        f"for name in {blocked!r}: sys.modules[name] = None\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"sys.argv = {argv!r}\n"
+        "runpy.run_module('xmask3d_tpu_torch.tools.convert_checkpoints', run_name='__main__')\n"
+        f"bad = [m for m, v in sys.modules.items() if v is not None "
+        f"and m.split('.')[0] in {blocked!r}]\n"
+        "print('loaded', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, cwd=str(tmp_path), timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "loaded []" in r.stdout
+    with np.load(out) as f:
+        keys = f.files
+    assert any(k.startswith("batch_stats/") for k in keys)
+    assert any(k.startswith("params/clip/") for k in keys)
+    assert any(k.startswith("params/backbone/feature_extractor/ldm_extractor/") for k in keys)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

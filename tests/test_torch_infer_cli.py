@@ -187,7 +187,7 @@ def test_scannet_train_batch_equals_jax(mini_root):
     """The train split: the seeded random view choice and the label
     compaction, as in the JAX package, then the batch without the grid
     jitter, and the loaders' train batches, whose grid jitter is drawn from
-    the same seeded rng."""
+    the same seeded rng. With `aug` the port's loader gives a sample."""
     caps = (4096, 4096, 8)
     kw = _ds_kw(mini_root, "train")
     from xmask3d_tpu.data.batching import collate_views as jax_collate_views
@@ -218,8 +218,11 @@ def test_scannet_train_batch_equals_jax(mini_root):
     for lt, lj in zip(got["hierarchy"].levels, want["hierarchy"].levels):
         np.testing.assert_array_equal(lt.coords.numpy(), np.asarray(lj.coords))
         np.testing.assert_array_equal(lt.kmap3.numpy(), np.asarray(lj.kmap3))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ScanNetViews(ScanNetConfig(**kw, aug=True), Capacities(*caps), HashTokenizer(512, 16))
+    # the augmented loader (held against the JAX pieces in test_torch_aug_loader.py)
+    aug = ScanNetViews(ScanNetConfig(**kw, aug=True), Capacities(*caps), HashTokenizer(512, 16),
+                       seed=3).get(0)
+    assert aug.voxel_coords.shape[1] == 3 and len(aug.voxel_coords) > 1
+    assert np.isfinite(aug.voxel_feats).all()
 
 
 @pytest.mark.parametrize("name,args", [

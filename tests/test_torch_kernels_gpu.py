@@ -513,7 +513,8 @@ def test_gn_silu_conv_backward(cuda):
 
 def test_tiny_training_step_on_the_card(cuda):
     """One fp32 training step of the tiny model on the card: every loss
-    finite, K1-K3 launched in the forward and none in the backward, a finite
+    finite, K1-K3 launched in the forward (and K2 again in the backward,
+    where remat recomputes the UNet's blocks), a finite
     non-zero gradient for both 3D UNets and the other trainable group, none
     for a frozen parameter, and the optimizer moving the parameters."""
     import os

@@ -65,3 +65,20 @@ def test_layernorm_matches_flax(width, mean, spread, well):
         assert to_flax <= 1e-5 and port_err <= 1e-5, (to_flax, port_err)
     else:
         assert port_err <= 1e-4 and port_err <= flax_err, (port_err, flax_err)
+
+
+@pytest.mark.parametrize("method", ["max", "mean"])
+@pytest.mark.parametrize("groups", [(1, 1, 1), (3, 1, 2, 4), (5,)])
+def test_ensemble_logits_with_labels_matches_jax(method, groups):
+    """Per-synonym logits reduced per label, uneven groups, against the JAX
+    function (fp32, exact: the same max and a mean of the same values)."""
+    from xmask3d_tpu.models.clip import ensemble_logits_with_labels as jax_ensemble
+    from xmask3d_tpu_torch.models.clip import ensemble_logits_with_labels
+
+    x = np.random.RandomState(sum(groups)).randn(2, 7, sum(groups)).astype(np.float32)
+    got = ensemble_logits_with_labels(torch.from_numpy(x), groups, method)
+    want = np.asarray(jax_ensemble(jnp.asarray(x), groups, method))
+    assert got.shape == (2, 7, len(groups))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError):
+        ensemble_logits_with_labels(torch.from_numpy(x), groups + (1,), method)

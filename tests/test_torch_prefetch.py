@@ -66,29 +66,42 @@ def test_results_come_in_order(workers):
 
 
 def test_at_most_depth_calls_ahead_and_arguments_drawn_in_order():
+    """The iterator refills its window and only then hands an item out, so
+    no call starts more than `depth` items past the item last handed out.
+    Seen from the consumer, while an item is on its way, `depth + 1` calls
+    have started beyond the ones it has taken. Deterministic: at each item
+    the consumer waits until every call that may start has started."""
+    depth, n = 5, 30
     lock = threading.Lock()
     drawn, started, consumed = [], [], []
-    lead = []
+    ahead = []  # per call: its item less the number of items consumed
+    started_evt = [threading.Event() for _ in range(n)]
 
     def args():
-        for i in range(30):
+        for i in range(n):
             drawn.append((i, threading.current_thread() is threading.main_thread()))
             yield i
 
     def fn(i):
         with lock:
             started.append(i)
-            lead.append(len(started) - len(consumed))
-        time.sleep(0.002)
+            ahead.append(i - len(consumed))
+        started_evt[i].set()
         return i
 
-    for out in parallel_map_iterator(fn, args(), workers=4, depth=5):
-        consumed.append(out)
+    for out in parallel_map_iterator(fn, args(), workers=4, depth=depth):
+        # `out` is in transit: the refill behind it has run, the next one not
+        last = min(out + depth, n - 1)
+        assert all(started_evt[k].wait(10) for k in range(last + 1))
+        with lock:
+            assert max(started) == last and len(started) == last + 1
+            assert len(started) - len(consumed) == min(depth + 1, n - len(consumed))
+            consumed.append(out)
         # the window: what was drawn is at most `depth` past what was consumed
-        assert len(drawn) <= len(consumed) + 5
-    assert consumed == list(range(30))
-    assert [i for i, _ in drawn] == list(range(30)) and all(main for _, main in drawn)
-    assert max(lead) <= 5
+        assert len(drawn) <= len(consumed) + depth
+    assert consumed == list(range(n))
+    assert [i for i, _ in drawn] == list(range(n)) and all(main for _, main in drawn)
+    assert max(ahead) == depth
 
 
 def test_an_exception_reaches_the_consumer_at_its_item():

@@ -19,7 +19,7 @@ shapes; anything else raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +56,25 @@ def _rule(mod: nn.Module, name: str) -> Tuple[str, str, Any]:
     return "params", name, None
 
 
+class BridgeTensor(NamedTuple):
+    collection: str  # "params" or "batch_stats"
+    path: str  # the JAX path, "a/b/c/<leaf>"
+    module: nn.Module
+    name: str  # the tensor's name in `module`
+    tensor: torch.Tensor
+    transform: Optional[Callable[[np.ndarray], np.ndarray]]  # JAX layout -> torch's
+
+
+def bridge_tensors(module: nn.Module) -> Iterator[BridgeTensor]:
+    """Each parameter and buffer of `module` under its JAX name (`_rule`)."""
+    for mod_name, mod in module.named_modules():
+        for name, t in list(mod.named_parameters(recurse=False)) \
+                + list(mod.named_buffers(recurse=False)):
+            col, leaf, fn = _rule(mod, name)
+            path = "/".join(p for p in (mod_name.replace(".", "/"), leaf) if p)
+            yield BridgeTensor(col, path, mod, name, t, fn)
+
+
 def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
     """Fill `module`'s parameters and buffers from JAX variables (numpy)."""
     flat = {
@@ -67,23 +86,18 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
     used = {col: set() for col in flat}
     missing, bad_shape = [], []
     with torch.no_grad():
-        for mod_name, mod in module.named_modules():
-            tensors = list(mod.named_parameters(recurse=False)) \
-                + list(mod.named_buffers(recurse=False))
-            for name, t in tensors:
-                col, leaf, fn = _rule(mod, name)
-                path = "/".join(p for p in (mod_name.replace(".", "/"), leaf) if p)
-                if path not in flat[col]:
-                    missing.append(f"{col}/{path}")
-                    continue
-                used[col].add(path)
-                arr = flat[col][path]
-                if fn is not None:
-                    arr = fn(arr)
-                if tuple(arr.shape) != tuple(t.shape):
-                    bad_shape.append(f"{col}/{path}: {arr.shape} vs {tuple(t.shape)}")
-                    continue
-                t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
+        for col, path, _, _, t, fn in bridge_tensors(module):
+            if path not in flat[col]:
+                missing.append(f"{col}/{path}")
+                continue
+            used[col].add(path)
+            arr = flat[col][path]
+            if fn is not None:
+                arr = fn(arr)
+            if tuple(arr.shape) != tuple(t.shape):
+                bad_shape.append(f"{col}/{path}: {arr.shape} vs {tuple(t.shape)}")
+                continue
+            t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
     unused = [f"{c}/{p}" for c in flat for p in sorted(set(flat[c]) - used[c])]
     if missing or unused or bad_shape:
         raise KeyError(

@@ -1,11 +1,11 @@
-"""Converted weights (the npz `scripts/convert_checkpoints.py` writes) into
-the port's modules.
+"""Converted weights (the npz `tools/convert_checkpoints.py` writes, and the
+JAX package's `scripts/convert_checkpoints.py` too) into the port's modules.
 
 The port's own copy of `xmask3d_tpu/checkpoint/load_converted.py`: the npz
 holds flat JAX paths, `params/<a/b/c>` and `batch_stats/<a/b/c>`, as numpy
 arrays (the released XMask3D trainables, SD v1 and open_clip through the
-JAX converters). Each port tensor takes its path and layout from the
-weight bridge's rules (`checkpoint/from_jax.py` `_rule`), as a partial
+converters, `checkpoint/convert_torch.py` and `convert_xmask3d.py`). Each
+port tensor takes its path and layout from the weight bridge's rules (`checkpoint/from_jax.py` `bridge_tensors`), as a partial
 update: the JAX `apply_flat_updates` semantics, so converted tensors with
 no destination are skipped, a shape mismatch raises, and tensors the npz
 does not hold keep their values.
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from xmask3d_tpu_torch.checkpoint.from_jax import _rule
+from xmask3d_tpu_torch.checkpoint.from_jax import bridge_tensors
 
 
 def load_converted_npz(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
@@ -41,22 +41,17 @@ def apply_flat_updates(module: nn.Module, flat: Dict[str, Dict[str, np.ndarray]]
     collection; a path missing from them had no destination."""
     applied: Dict[str, List[str]] = {col: [] for col in flat}
     with torch.no_grad():
-        for mod_name, mod in module.named_modules():
-            tensors = list(mod.named_parameters(recurse=False)) \
-                + list(mod.named_buffers(recurse=False))
-            for name, t in tensors:
-                col, leaf, fn = _rule(mod, name)
-                path = "/".join(p for p in (mod_name.replace(".", "/"), leaf) if p)
-                arr = flat.get(col, {}).get(path)
-                if arr is None:
-                    continue
-                if fn is not None:
-                    arr = fn(arr)
-                if tuple(arr.shape) != tuple(t.shape):
-                    raise ValueError(f"shape mismatch for {col}/{path}: converted "
-                                     f"{tuple(arr.shape)} vs model {tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
-                applied[col].append(path)
+        for col, path, _, _, t, fn in bridge_tensors(module):
+            arr = flat.get(col, {}).get(path)
+            if arr is None:
+                continue
+            if fn is not None:
+                arr = fn(arr)
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch for {col}/{path}: converted "
+                                 f"{tuple(arr.shape)} vs model {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
+            applied[col].append(path)
     return applied
 
 

@@ -3,9 +3,15 @@
 
 What it carries over from the reference dataset stack:
 - Point3DLoader basics (dataset/point_loader.py): glob `{split}/*.pth`
-  scenes, `loop` epoch-length multiplier, voxelize, and the train batch's
-  grid jitter. The training-time augmentations (`aug`) are not carried
-  over: the loader refuses `aug=True`.
+  scenes, `loop` epoch-length multiplier, and the train batch's grid
+  jitter; with `aug`, the training-time augmentations: elastic distortion
+  of the view's points, a random rotation and scale in the voxelizer, then
+  the chromatic transforms of the voxels' colours, all drawn from the
+  sample's RandomState in the JAX loader's order. The JAX loader takes only
+  the first point of the distorted cloud (`self.prevoxel(locs_vis)[0]`,
+  `xmask3d_tpu/data/scannet.py:315`: `Compose` of a lone ElasticDistortion
+  returns the bare coords) and its voxelizer then fails; the port takes the
+  distorted coords whole.
 - ScannetLoader (dataset/data_loader.py:15-316): per sample, load a scene,
   apply ScanNet200 remap when configured, train-time novel-category masking
   and label compaction, random-view sampling with the acceptance rule
@@ -30,6 +36,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from xmask3d_tpu_torch.data.augmentation import (
+    ChromaticAutoContrast,
+    ChromaticJitter,
+    ChromaticTranslation,
+    Compose,
+    ElasticDistortion,
+    HueSaturationTranslation,
+)
 from xmask3d_tpu_torch.data.batching import Capacities, ViewSample, collate_views
 from xmask3d_tpu_torch.data.projection import get_scannet_mapper
 from xmask3d_tpu_torch.data.voxelizer import Voxelizer
@@ -81,6 +95,20 @@ def _resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
         return _resize_nearest(img, size)
 
 
+ELASTIC_DISTORT_PARAMS = ((0.2, 0.4), (0.8, 1.6))
+
+
+def input_transforms(rng: np.random.RandomState) -> Compose:
+    """The chromatic transforms of a voxelized training view, drawing from
+    `rng` (the JAX loader's `input_transforms`)."""
+    return Compose([
+        ChromaticAutoContrast(rng=rng),
+        ChromaticTranslation(0.1, rng=rng),
+        ChromaticJitter(0.05, rng=rng),
+        HueSaturationTranslation(0.5, 0.2, rng=rng),
+    ])
+
+
 @dataclass
 class ScanNetConfig:
     data_root: str
@@ -92,7 +120,7 @@ class ScanNetConfig:
     ignore_category: Sequence[int]
     voxel_size: float = 0.02
     split: str = "train"
-    aug: bool = False  # training-time augmentation: not in the port yet
+    aug: bool = False  # training-time augmentation
     loop: int = 1
     input_color: bool = True
     scannet200: bool = False
@@ -105,10 +133,6 @@ class ScanNetViews:
     """Per-view sample pipeline (reference ScannetLoader equivalent)."""
 
     def __init__(self, cfg: ScanNetConfig, caps: Capacities, tokenizer, seed: int = 0):
-        if cfg.aug:
-            raise NotImplementedError(
-                "ScanNetConfig.aug: the training-time augmentations are not ported"
-            )
         self.cfg = cfg
         self.caps = caps
         self.tokenizer = tokenizer
@@ -138,7 +162,8 @@ class ScanNetViews:
         self.map_2d = {v: i for i, v in enumerate(label_2d_id)}
         self.map_all = {v: i for i, v in enumerate(cfg.label_2d)}
 
-        self.voxelizer = Voxelizer(voxel_size=cfg.voxel_size)
+        # each sample passes its RandomState
+        self.voxelizer = Voxelizer(cfg.voxel_size, use_augmentation=cfg.aug)
 
     def __len__(self):
         return len(self.data_paths) * self.cfg.loop
@@ -223,9 +248,13 @@ class ScanNetViews:
         return {"mapping": mapping, "visible": visible, "img_dir": img_dir}
 
     def _make_sample(
-        self, index: int, locs, feats, labels, view: Dict
+        self, index: int, locs, feats, labels, view: Dict,
+        rng: Optional[np.random.RandomState] = None,
     ) -> Optional[ViewSample]:
+        """The view's sample; with `aug`, its augmentations draw from `rng`
+        (by default the loader's own)."""
         cfg = self.cfg
+        rng = self.rng if rng is None else rng
         visible = view["visible"]
         img_dir = view["img_dir"]
         mapping = view["mapping"][visible]
@@ -273,9 +302,13 @@ class ScanNetViews:
             l2d[l2d == -1] = len(cfg.base_category)
         l2d = _resize_nearest(l2d, cfg.image_size)
 
+        pts = ElasticDistortion(ELASTIC_DISTORT_PARAMS, rng=rng)(locs_vis) if cfg.aug \
+            else locs_vis
         coords, vfeats, _, inds_rec = self.voxelizer.voxelize(
-            locs_vis, feats_vis, label_vis
+            pts, feats_vis, label_vis, rng=rng
         )
+        if cfg.aug:
+            coords, vfeats, _ = input_transforms(rng)(coords, vfeats, train_labels)
         if cfg.input_color:
             vfeats = vfeats[:, :3] / 127.5 - 1.0
         else:
@@ -305,7 +338,8 @@ class ScanNetViews:
         rule) — so in-training validation sees the same view sequence as
         the reference for a given epoch. Set `.epoch` before validating
         (reference train.py:321: `val_data.epoch = epoch - 1`). Train views
-        are drawn from `rng`, by default the loader's own."""
+        and the augmentations are drawn from `rng`, by default the loader's
+        own."""
         rng = self.rng if rng is None else rng
         index = index_long % len(self.data_paths)
         locs, feats, labels = self._load_scene(index)
@@ -324,7 +358,7 @@ class ScanNetViews:
             view = self._load_view(name, img_dir, locs)
             if view is None:
                 continue
-            sample = self._make_sample(index, locs, feats, labels, view)
+            sample = self._make_sample(index, locs, feats, labels, view, rng)
             if sample is not None:
                 return sample
         raise RuntimeError(f"no acceptable view for scene {index}")

@@ -1,9 +1,10 @@
-"""Host-side voxelization (numpy): own copy of the eval path of
-`xmask3d_tpu/data/voxelizer.py`.
+"""Host-side voxelization (numpy): own copy of `xmask3d_tpu/data/voxelizer.py`.
 
-Sparse quantization into a voxel grid. Dedup uses exact int64 bit-packing
-of the integer coordinates. The training-time rotation, scale, translation
-and clipping come with the training slice.
+Sparse quantization into a voxel grid, with the training-time rigid
+augmentation of the reference's voxelizer.py:11-132 (a random rotation
+about each axis in a shuffled order, then a scale) at the ScanNet
+loader's bounds. Dedup uses exact int64 bit-packing of the integer
+coordinates.
 """
 
 from __future__ import annotations
@@ -13,6 +14,23 @@ from typing import Tuple
 import numpy as np
 
 _BITS = 20
+
+# the ScanNet loader's augmentation bounds (the JAX data/scannet.py)
+SCALE_AUGMENTATION_BOUND = (0.9, 1.1)
+ROTATION_AUGMENTATION_BOUND = (
+    (-np.pi / 64, np.pi / 64),
+    (-np.pi / 64, np.pi / 64),
+    (-np.pi, np.pi),
+)
+
+
+def _rotation_matrix(axis: np.ndarray, theta: float) -> np.ndarray:
+    """Rodrigues rotation about `axis` by `theta` (the reference's expm of
+    the cross-product matrix, in closed form)."""
+    a = axis / np.linalg.norm(axis)
+    kx, ky, kz = a
+    k = np.array([[0, -kz, ky], [kz, 0, -kx], [-ky, kx, 0]])
+    return np.eye(3) + np.sin(theta) * k + (1 - np.cos(theta)) * (k @ k)
 
 
 def _pack_nonneg(c: np.ndarray) -> np.ndarray:
@@ -38,21 +56,46 @@ def sparse_quantize(coords: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class Voxelizer:
-    """Quantization of a point cloud to a voxel grid of `voxel_size`."""
+    """Quantization to a voxel grid of `voxel_size`; with `use_augmentation`,
+    a random rotation and scale first, drawn from the RandomState a call
+    passes in the JAX package's order: the three rotation angles, their
+    shuffle, the scale. No clip box: the loader passes none."""
 
-    def __init__(self, voxel_size: float = 0.05):
+    def __init__(self, voxel_size: float = 0.05, use_augmentation: bool = False):
         self.voxel_size = voxel_size
+        self.use_augmentation = use_augmentation
 
-    def voxelize(self, coords, feats, labels):
+    def _rigid(self, rng: np.random.RandomState) -> np.ndarray:
+        """The 4x4 map from points to voxel coords: the scale, and with
+        augmentation a random one and a rotation after it."""
+        voxelization_matrix = np.eye(4)
+        scale = 1 / self.voxel_size
+        if not self.use_augmentation:
+            np.fill_diagonal(voxelization_matrix[:3, :3], scale)
+            return voxelization_matrix
+        mats = []
+        for axis_ind, bound in enumerate(ROTATION_AUGMENTATION_BOUND):
+            axis = np.zeros(3)
+            axis[axis_ind] = 1
+            mats.append(_rotation_matrix(axis, rng.uniform(*bound)))
+        rng.shuffle(mats)
+        rotation_matrix = np.eye(4)
+        rotation_matrix[:3, :3] = mats[0] @ mats[1] @ mats[2]
+        np.fill_diagonal(voxelization_matrix[:3, :3],
+                         scale * rng.uniform(*SCALE_AUGMENTATION_BOUND))
+        return rotation_matrix @ voxelization_matrix
+
+    def voxelize(self, coords, feats, labels, rng: np.random.RandomState = None):
         """Returns (voxel_coords int, voxel_feats, voxel_labels,
         inds_reconstruct): the reference voxelize contract
-        (voxelizer.py:81-132) without augmentation."""
+        (voxelizer.py:81-132). With augmentation, draws from `rng`."""
         if coords.shape[1] != 3 or coords.shape[0] != feats.shape[0]:
             raise ValueError("coords must be (N, 3) and match feats")
-        scale = np.eye(4)
-        np.fill_diagonal(scale[:3, :3], 1 / self.voxel_size)
+        if self.use_augmentation and rng is None:
+            raise ValueError("an augmenting voxelizer needs the call's RandomState")
+        rigid = self._rigid(rng)
         homo = np.hstack([coords, np.ones((len(coords), 1), coords.dtype)])
-        coords_aug = np.floor(homo @ scale.T[:, :3])
+        coords_aug = np.floor(homo @ rigid.T[:, :3])
         coords_aug = np.floor(coords_aug - coords_aug.min(0))
 
         inds, inds_reconstruct = sparse_quantize(coords_aug)

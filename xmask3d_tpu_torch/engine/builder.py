@@ -53,6 +53,7 @@ def model_config_from_cfg(cfg: Config, tiny: bool = False, fused_gn: bool = Fals
         pixel_enc_layers=cfg.get("pixel_enc_layers", 6),
         dtype=dtype,
         fused_gn=fused_gn,
+        remat_backbone=bool(cfg.get("remat_backbone", False)),
     )
 
 

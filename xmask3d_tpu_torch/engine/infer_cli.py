@@ -11,11 +11,11 @@ from their nearest seen one (KD-tree), and keeps the base/novel IoU meters.
 
 `XMASK3D_FUSED_GN=1` runs the VAE resblocks' GroupNorm -> SiLU -> conv3x3
 stages on kernel K4. `--ckpt DIR` serves the newest checkpoint the trainer
-wrote there, `--converted NPZ` the weights `scripts/convert_checkpoints.py`
-wrote, `--scene_reuse` (default from `XMASK3D_SCENE_REUSE`) runs the 3D
-branch once a scene (`engine/scene_reuse.py`) and `--save_ply DIR` writes
-each scene's predicted and ground-truth labels as coloured point clouds.
-On the GPU every view's forward and routing is one CUDA graph, captured at
+wrote there, `--converted NPZ` the released weights converted by
+`python -m xmask3d_tpu_torch.tools.convert_checkpoints`, `--scene_reuse`
+(default from `XMASK3D_SCENE_REUSE`) runs the 3D branch once a scene
+(`engine/scene_reuse.py`) and `--save_ply DIR` writes each scene's predicted
+and ground-truth labels as coloured point clouds. On the GPU every view's forward and routing is one CUDA graph, captured at
 the first view and replayed for the others (`engine/graphs.py`);
 `main(argv, device="cpu")` runs the same steps eagerly on the CPU with the
 plain versions of the kernels.
@@ -66,7 +66,8 @@ def get_parser():
                    help="directory of the trainer's checkpoints (<save_path>/model); "
                         "the newest is served")
     p.add_argument("--converted", default="",
-                   help="converted-weights npz from scripts/convert_checkpoints.py")
+                   help="converted-weights npz from "
+                        "`python -m xmask3d_tpu_torch.tools.convert_checkpoints`")
     p.add_argument("--num_scenes", type=int, default=0)
     p.add_argument("--save_ply", default="",
                    help="directory for each scene's predicted and ground-truth PLY files")
@@ -100,14 +101,14 @@ def make_infer_step(model, cfg):
 
 
 def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = False,
-                        ckpt: str = "", converted: str = ""):
-    """The eval model on `device` with seeded weights, then the newest
-    trainer checkpoint under `ckpt` (its masters in the compute dtype and
+                        ckpt: str = "", converted: str = "", seed: int = 0):
+    """The eval model on `device` with weights drawn from `seed`, then the
+    newest trainer checkpoint under `ckpt` (its masters in the compute dtype and
     its BatchNorm statistics; the frozen towers keep their built weights,
     as the trainer's restore keeps them) and the converted npz
     `converted`, in that order."""
     dev = resolve_device(device)
-    model = build_model(cfg, tiny=tiny, device=dev, fused_gn=fused_gn)
+    model = build_model(cfg, tiny=tiny, seed=seed, device=dev, fused_gn=fused_gn)
     if ckpt:
         from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
 

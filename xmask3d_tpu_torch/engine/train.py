@@ -50,8 +50,6 @@ UNHONOURED_KEYS = {
     "mesh_shape": "the step runs on one device; distribution is ROADMAP A 6",
     "donate_state": "the step updates parameters, masters and optimizer state in place "
                     "whatever its value, so there is nothing to donate and no ROADMAP item",
-    "remat_backbone": "the SD backbone keeps its activations (no block remat); "
-                      "ROADMAP A 7",
 }
 
 

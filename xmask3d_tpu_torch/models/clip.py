@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -208,3 +208,16 @@ class CLIP(nn.Module):
 def build_clip(name: str) -> CLIP:
     text_cfg, vision_cfg = CLIP_CONFIGS[name]
     return CLIP(text_cfg, vision_cfg)
+
+
+def ensemble_logits_with_labels(logits: torch.Tensor, group_sizes: Sequence[int],
+                                method: str = "max") -> torch.Tensor:
+    """Per-synonym logits -> per-label logits (the reference's helper.py:72-97):
+    the max or the mean over each label's group of synonyms. `group_sizes`
+    counts the synonyms per label; logits' last dim is their sum."""
+    if method not in ("max", "mean"):
+        raise ValueError(f"ensemble method must be max or mean, got {method!r}")
+    if sum(group_sizes) != logits.shape[-1]:
+        raise ValueError(f"group sizes {list(group_sizes)} do not sum to {logits.shape[-1]}")
+    segs = torch.split(logits, list(group_sizes), dim=-1)
+    return torch.stack([s.amax(-1) if method == "max" else s.mean(-1) for s in segs], dim=-1)

@@ -13,10 +13,38 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xmask3d_tpu_torch.device import device_constant
 
 EPS = 1e-6
+
+
+class RematBlock(nn.Module):
+    """A block whose activations, with `remat` set, are not kept for the
+    backward but recomputed there from its inputs: flax's `nn.remat` on the
+    block (`torch.utils.checkpoint`, non-reentrant). Only a call that
+    autograd records is checkpointed (grad mode on, and an input or a
+    parameter that requires grad); eval, `no_grad` and the captured serving
+    graphs run `body` as it is. Subclasses define `body`."""
+
+    remat = False
+
+    def forward(self, *args):
+        if self.remat and torch.is_grad_enabled() and (
+                any(torch.is_tensor(a) and a.requires_grad for a in args)
+                or any(p.requires_grad for p in self.parameters())):
+            return checkpoint(self.body, *args, use_reentrant=False)
+        return self.body(*args)
+
+
+def set_remat(module: nn.Module, on: bool) -> int:
+    """Sets `remat` on every RematBlock inside `module`; returns their
+    count."""
+    blocks = [m for m in module.modules() if isinstance(m, RematBlock)]
+    for m in blocks:
+        m.remat = on
+    return len(blocks)
 
 
 def gn_groups(channels: int, preferred: int = 32) -> int:

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, LayerNorm, upsample2x_nearest
+from xmask3d_tpu_torch.models.layers import (
+    Conv, GroupNorm, LayerNorm, RematBlock, upsample2x_nearest)
 from xmask3d_tpu_torch.ops.flash_attention import attention
 
 
@@ -48,7 +49,7 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-class UNetResBlock(nn.Module):
+class UNetResBlock(RematBlock):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
         super().__init__()
         self.in_norm = GroupNorm(in_ch)
@@ -59,7 +60,7 @@ class UNetResBlock(nn.Module):
         if in_ch != out_ch:
             self.skip = Conv(in_ch, out_ch, 1)
 
-    def forward(self, x, emb):
+    def body(self, x, emb):
         h = self.in_conv(F.silu(self.in_norm(x)))
         h = h + self.emb_proj(F.silu(emb))[:, None, None, :]
         h = self.out_conv(F.silu(self.out_norm(h)))
@@ -121,7 +122,7 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff_out(self.ff_geglu(self.norm3(x)))
 
 
-class SpatialTransformer(nn.Module):
+class SpatialTransformer(RematBlock):
     def __init__(self, c: int, heads: int, ctx_dim: int):
         super().__init__()
         self.norm = GroupNorm(c)
@@ -129,7 +130,7 @@ class SpatialTransformer(nn.Module):
         self.block_0 = BasicTransformerBlock(c, heads, ctx_dim)
         self.proj_out = Conv(c, c, 1)
 
-    def forward(self, x, context):
+    def body(self, x, context):
         b, h, w, c = x.shape
         y = self.proj_in(self.norm(x)).reshape(b, h * w, c)
         y = self.block_0(y, context).reshape(b, h, w, c)
@@ -137,6 +138,9 @@ class SpatialTransformer(nn.Module):
 
 
 class SDUNet(nn.Module):
+    """Each UNetResBlock and SpatialTransformer is a RematBlock: the JAX
+    package's `nn.remat` on the same blocks."""
+
     def __init__(self, cfg: UNetConfig = UNetConfig(), tap_indices: Sequence[int] = (2, 5, 8, 11)):
         super().__init__()
         self.cfg, self.tap_indices = cfg, tuple(tap_indices)

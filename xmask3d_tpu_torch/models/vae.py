@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, upsample2x_nearest
+from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, RematBlock, upsample2x_nearest
 from xmask3d_tpu_torch.ops.flash_attention import attention
 from xmask3d_tpu_torch.ops.gn_conv import gn_silu_conv, kernel_params
 
@@ -36,7 +36,7 @@ class VAEConfig:
 VAE_TINY = VAEConfig(ch=16, ch_mult=(1, 1, 2, 2), num_res_blocks=2)
 
 
-class ResnetBlock(nn.Module):
+class ResnetBlock(RematBlock):
     """Two GroupNorm -> SiLU -> conv3x3 stages and a residual. The parameter
     tree is the same with `fused_gn` on or off."""
 
@@ -67,7 +67,7 @@ class ResnetBlock(nn.Module):
         return gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w, conv.bias,
                             groups=norm.groups, params=params)
 
-    def forward(self, x):
+    def body(self, x):
         h = self._stage(x, self.norm1, self.conv1, "conv1")
         h = self._stage(h, self.norm2, self.conv2, "conv2")
         if hasattr(self, "nin_shortcut"):
@@ -75,7 +75,7 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
-class AttnBlock(nn.Module):
+class AttnBlock(RematBlock):
     """Single-head spatial self-attention over H x W (VAE mid block)."""
 
     def __init__(self, c: int):
@@ -86,7 +86,7 @@ class AttnBlock(nn.Module):
         self.v = Conv(c, c, 1)
         self.proj_out = Conv(c, c, 1)
 
-    def forward(self, x):
+    def body(self, x):
         b, h, w, c = x.shape
         y = self.norm(x)
         q, k, v = (p(y).reshape(b, 1, h * w, c).contiguous() for p in (self.q, self.k, self.v))

@@ -29,7 +29,7 @@ from xmask3d_tpu_torch.losses.fuser import (
 from xmask3d_tpu_torch.losses.matcher import match_costs
 from xmask3d_tpu_torch.models.backbone import FeatureExtractorBackbone
 from xmask3d_tpu_torch.models.clip import build_clip
-from xmask3d_tpu_torch.models.layers import resize
+from xmask3d_tpu_torch.models.layers import resize, set_remat
 from xmask3d_tpu_torch.models.ldm_extractor import LDM_SD_V1, LdmConfig
 from xmask3d_tpu_torch.models.mask_decoder import CategoryEmbed, ODISEMaskedTransformerDecoder
 from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, mink_unet
@@ -74,6 +74,9 @@ class XMask3DConfig:
     dtype: torch.dtype = torch.float32
     # the VAE resblocks' GroupNorm -> SiLU -> conv3x3 stages on kernel K4
     fused_gn: bool = False
+    # block-level remat of the SD VAE and UNet where autograd records them
+    # (training); eval does not change
+    remat_backbone: bool = False
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -126,6 +129,7 @@ class XMask3D(nn.Module):
         self.pc_decoder = PCProcessor(arch=c.arch_3d)
         self.pc_binary_head = PCBinaryProcessor(arch=c.arch_binary_head)
         self.backbone = FeatureExtractorBackbone(c.ldm, fused_gn=c.fused_gn)
+        set_remat(self.backbone, c.remat_backbone)
         self.pixel_decoder = MSDeformAttnPixelDecoder(enc_layers=c.pixel_enc_layers)
         self.mask_decoder = ODISEMaskedTransformerDecoder(
             num_classes=c.num_classes, num_queries=c.num_queries,

@@ -89,6 +89,14 @@ Phases, each of which raises on failure:
      named (`CONVERTED_UNCOVERED`), then one view and one scene on the graph
      route equal to seed A's exactly; the files' bytes, the conversion's
      and the load's seconds, peak RSS and s/scene; the files removed;
+     `txt2img`: the diffusion sampling path with the same model's SD UNet,
+     VAE and text encoder (`txt2img_phase`): every K2 and K4 call of one
+     denoising step and one full decode (K4 at the decoder's 256^2 and
+     512^2 levels) held against its plain version and timed, then one
+     512x512 image (`ddim50`, CFG 7.5) with the decoder unfused and on K4,
+     its launches counted from 0 against `expected_txt2img_launches`, its
+     values finite and in [0, 1]; s an image and a step, peak bytes, the
+     device time of a profiled step;
   6. training at full width (`train_phase`): the serving models freed, the
      B15N4 model built for training (bf16 parameters, fp32 AdamW masters of
      the trainable groups, SD and CLIP frozen) and driven through the
@@ -110,6 +118,11 @@ Phases, each of which raises on failure:
      may not fit, which is logged); a profiled step each way gives the
      device's busy time and each kernel's forward and plain-backward
      device ms;
+     `ddp` (`ddp_phase`): data parallelism through `parallel/mesh.py`: a
+     step with a one-process NCCL group bit for bit the step without one;
+     two ranks spawned on the card over gloo against one process at batch
+     2 (bf16 timed, fp32 held to it), and the CLI's eval sharded over the
+     two ranks equal to one process's;
   7. the tiny model on the card (fp32, kernels) against the same model on
      the CPU (plain versions), unfused and with `fused_gn`, and one training
      step of it, losses and gradients leaf by leaf.
@@ -2234,6 +2247,534 @@ def tiny_train_check(cfg_path) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# txt2img: the diffusion sampling path through SD v1 at full width
+# --------------------------------------------------------------------------
+
+# one 512 x 512 image (64^2 latents), classifier-free guidance at UNet batch 2
+TXT2IMG_RESPACING, TXT2IMG_GUIDANCE = "ddim50", 7.5
+TXT2IMG_PROMPT = "a photograph of a living room with a sofa, a table and a lamp"
+
+
+def expected_txt2img_launches(mc, steps: int, fused_gn: bool) -> dict:
+    """One image's launches: the two K2 calls of every SD UNet spatial
+    transformer a step (the full forward: each attention level's down and up
+    blocks and the middle one) and the VAE decoder's middle attention once;
+    with `fused_gn`, two K4 calls per decoder resblock (its two middle
+    blocks and every up block)."""
+    u, v = mc.ldm.unet, mc.ldm.vae
+    levels = sum(lv in u.attention_levels for lv in range(len(u.ch_mult)))
+    transformers = levels * (2 * u.num_res_blocks + 1) + 1
+    k4 = 2 * (2 + len(v.ch_mult) * (v.num_res_blocks + 1)) if fused_gn else 0
+    return {"sparse_conv": 0, "flash_attention": 2 * transformers * steps + 1,
+            "deform_attn": 0, "gn_silu_conv": k4}
+
+
+def txt2img_phase(model, cfg, statics, table) -> list:
+    """`models/txt2img.py` `sample_images` with the model's SD UNet, VAE and
+    text encoder (seeded random weights): the prompt's and the empty
+    prompt's contexts, `ddim50`, CFG 7.5, one 512 x 512 image, with the VAE
+    decoder's resblocks unfused and on K4. First every K2 and K4 call of one
+    denoising step (the UNet's full forward at batch 2) and of one decode is
+    recorded and held against its plain version (bf16 and fp32), timed and
+    profiled (`check_kernels`, `device_times`). Then one image each way with
+    the counts set to 0 before and read after: the launches against
+    `expected_txt2img_launches`, the variants, the image's shape, values
+    finite and in [0, 1]; seconds an image and a step, the decode's
+    seconds, peak bytes, and the device ms of one profiled step. Returns
+    the kernel rows of the recorded calls (K2 in the sampler, K4 at the
+    decoder's shapes)."""
+    import torch
+
+    from xmask3d_tpu_torch.engine.builder import data_tokenizer
+    from xmask3d_tpu_torch.models.diffusion import GaussianDiffusion
+    from xmask3d_tpu_torch.models.txt2img import sample_images
+    from xmask3d_tpu_torch.models.vae import ResnetBlock
+
+    mc = model.cfg
+    ldm = model.backbone.feature_extractor.ldm_extractor
+    unet, vae = ldm.unet, ldm.vae
+    dev = next(unet.parameters()).device
+    dt = unet.time_embed_0.weight.dtype
+    with torch.no_grad():
+        cond = ldm.embed_text(torch.from_numpy(data_tokenizer(cfg)([TXT2IMG_PROMPT])).to(dev))
+        uncond = ldm.embed_text(statics["uncond_tokens"])
+    diffusion = GaussianDiffusion.create(mc.ldm.diffusion_steps, mc.ldm.noise_schedule,
+                                         TXT2IMG_RESPACING)
+    n = diffusion.num_timesteps
+    stride = 2 ** (len(mc.ldm.vae.ch_mult) - 1)
+    latent = (1, 512 // stride, 512 // stride, mc.ldm.unet.in_channels)
+    blocks = [m for m in vae.modules() if isinstance(m, ResnetBlock)]
+    ctx = torch.cat([cond, uncond]).to(dt)
+    t2 = torch.full((2,), int(diffusion.timestep_map[-1]), dtype=torch.int64, device=dev)
+    x = torch.randn(latent, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+
+    def denoise_step():
+        with torch.no_grad():
+            eps = unet(torch.cat([x, x]), t2, ctx, full=True)[0].float()
+            e_c, e_u = eps.chunk(2)
+            return e_u + TXT2IMG_GUIDANCE * (e_c - e_u)
+
+    for m in blocks:
+        m.fused_gn = True
+    calls = {"flash_attention": [], "gn_silu_conv": []}
+    reset_launches()
+    with recording(calls):
+        denoise_step()
+        with torch.no_grad():
+            vae.decode(x.to(dt))
+        torch.cuda.synchronize()
+    want = expected_txt2img_launches(mc, 1, True)
+    log({"phase": "txt2img_recorded", "calls": {k: len(v) for k, v in calls.items()},
+         "expected": want, "launches": launches()})
+    for name, cs in calls.items():
+        if len(cs) != want[name]:
+            raise AssertionError(f"txt2img: {len(cs)} {name} calls in a step and a decode, "
+                                 f"expected {want[name]}")
+    rows = check_kernels(table, calls)
+    device_times(table, calls, rows)
+    for row in rows:
+        row["launches"] = len(calls[row["name"]])
+    log({"phase": "txt2img_kernel_rows", "rows": rows})
+    del calls
+    torch.cuda.empty_cache()
+    prof = profile_view(denoise_step)
+    prof["phase"] = "txt2img_step_profile"
+    log(prof)
+
+    images = {}
+    for fused in (False, True):
+        for m in blocks:
+            m.fused_gn = fused
+        expected = expected_txt2img_launches(mc, n, fused)
+        with torch.no_grad():  # one uncounted decode: each way's first use of its layouts
+            vae.decode(x.to(dt))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad():
+            vae.decode(x.to(dt))
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        variants = {}
+        with counting_variants(table, variants):
+            t0 = time.time()
+            img = sample_images(unet, vae, diffusion, cond, uncond,
+                                torch.Generator(device=dev).manual_seed(0),
+                                latent_hw=latent[1:3], latent_dim=latent[3],
+                                guidance_scale=TXT2IMG_GUIDANCE)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+        counts = launches()
+        log({"phase": "txt2img", "fused_gn": fused, "respacing": TXT2IMG_RESPACING,
+             "steps": n, "guidance": TXT2IMG_GUIDANCE, "shape": list(img.shape),
+             "seconds_per_image": seconds, "seconds_per_step": (seconds - decode_s) / n,
+             "decode_seconds": decode_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "launches": counts, "expected": expected, "variants": variants,
+             "min": float(img.min()), "max": float(img.max()), "mean": float(img.mean())})
+        for name, k in expected.items():
+            if counts[name] != k:
+                raise AssertionError(f"txt2img (fused_gn {fused}): {counts[name]} {name} "
+                                     f"launches, expected {k}")
+        check_variants(variants, expected, 1)
+        if tuple(img.shape) != (1, 512, 512, 3):
+            raise AssertionError(f"txt2img: image shape {tuple(img.shape)}")
+        if not (torch.isfinite(img).all() and float(img.min()) >= 0 and float(img.max()) <= 1):
+            raise AssertionError("txt2img: values not finite or outside [0, 1]")
+        images[fused] = img
+    log({"phase": "txt2img_fused_vs_unfused",
+         "max_abs_diff": float((images[True] - images[False]).abs().max())})
+    for m in blocks:
+        m.fused_gn = True
+    return rows
+
+
+# --------------------------------------------------------------------------
+# ddp: data-parallel training and sharded eval across processes
+# --------------------------------------------------------------------------
+
+DDP_DIR = os.path.join(ROOT, "_ddp")
+# the CLI's synthetic scenes at the bench's capacities
+DDP_EVAL_ARGV = ["--config", CONFIG, "--synthetic", "--num_scenes", "2",
+                 "max_points", "32768", "max_voxels", "24576"]
+# Two ranks against one process, held in fp32 (in bf16 the split changes
+# which roundings the batch-size-dependent kernels make, ~1e-3 of a loss):
+# each loss term, trainable leaf's gradient, BatchNorm buffer and the whole
+# gradient within TRAIN_TOL, or within DDP_SPREAD_MULTIPLE times how far
+# the one process's own value moves when its input voxel features are
+# nudged by DDP_NUDGE relative (two seeds). The model's gradient at seeded
+# random weights can be chaotic (on the CPU's tiny model a 1e-7 nudge of
+# the input moves the conditioning leaves' gradients by 5x their norm), and
+# the split changes the BatchNorm sums' rounding just so.
+DDP_SPREAD_MULTIPLE, DDP_NUDGE, DDP_NUDGE_SEEDS = 8.0, 1e-6, (7, 8)
+
+
+def ddp_step(model, statics, batch, draws, cfg) -> dict:
+    """One train step from the model's current weights with a new optimizer,
+    on `batch` with the point `draws` given: the losses and histograms, each
+    trainable parameter's fp32 master gradient as the update sees it (summed
+    over the ranks under a process group), the buffers after it, the
+    step's host ms and each all-reduce's ms (the gradients', the
+    metrics')."""
+    import torch
+
+    from xmask3d_tpu_torch.engine import train_step as ts
+
+    state = ts.create_train_state(model, ts.make_optimizer(
+        model, cfg.lr_3d, cfg.lr_others, 1000, schedule=cfg.learning_rate_type,
+        power=cfg.power), seed=0)
+    name = {id(p): n for n, p in model.named_parameters()}
+    grads, reduce_ms = {}, []
+    real_step, real_reduce = state.optimizer.step, ts.all_reduce_sum_
+
+    def keep_grads(s):
+        for pairs in state.optimizer.pairs.values():
+            for p, m in pairs:
+                grads[name[id(p)]] = m.grad.detach().clone()
+        real_step(s)
+
+    def timed_reduce(tensors):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        real_reduce(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.time() - t0) * 1e3)
+
+    state.optimizer.step = keep_grads
+    ts.all_reduce_sum_ = timed_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = ts.make_train_step(dict(cfg.loss_weight))(state, batch, statics, 1.0,
+                                                            draws=draws)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+    finally:
+        ts.all_reduce_sum_ = real_reduce
+        state.optimizer.step = real_step  # no cycle: the optimizer's memory goes with it
+    return {"metrics": {k: v.detach().cpu() for k, v in metrics.items()}, "grads": grads,
+            "buffers": {n: b.detach().clone() for n, b in model.named_buffers()},
+            "step_ms": ms, "reduce_ms": reduce_ms}
+
+
+def _ddp_cfg(dtype: str):
+    from xmask3d_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    cfg.update(compute_dtype=dtype)
+    return cfg
+
+
+def _deterministic(fn, *args):
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn(*args)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _weights_sum(model) -> float:
+    import torch
+
+    with torch.no_grad():
+        return float(sum(t.double().sum() for t in list(model.parameters())
+                         + list(model.buffers())))
+
+
+def _ddp_rank(rank: int, world: int) -> None:
+    """A rank of the two-rank phase (a spawned process): gloo on the one
+    card; the B15N4 training build from the parent's seed with rank 0's
+    weights broadcast, one step on its row of the saved batch and draws,
+    in bf16 (the configs' type, the default mode: the second of two steps
+    timed) and in fp32 (under deterministic algorithms: compared); then the
+    CLI's sharded eval.
+    Writes its results to DDP_DIR/rank<r>.pt, a traceback to rank<r>.err on
+    failure."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from xmask3d_tpu_torch.engine import infer_cli
+        from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model
+        from xmask3d_tpu_torch.parallel.mesh import broadcast_module, init_distributed, rows_of_rank
+
+        dev = init_distributed(init_method=f"file://{os.path.join(DDP_DIR, 'rendezvous')}",
+                               backend="gloo")
+        data = torch.load(os.path.join(DDP_DIR, "inputs.pt"), map_location=dev,
+                          weights_only=False)
+        batch, draws = rows_of_rank(data["batch"]), rows_of_rank(data["draws"], dim=1)
+        out = {"device": str(dev)}
+        for dtype in ("bfloat16", "float32"):
+            cfg = _ddp_cfg(dtype)
+            model = build_train_model(cfg, seed=0, device=dev)
+            t0 = time.time()
+            broadcast_module(model)
+            torch.cuda.synchronize()
+            broadcast_s = time.time() - t0
+            weights_sum = _weights_sum(model)
+            statics = build_statics(model, cfg, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            if dtype == "bfloat16":  # the second step is timed: the first loads the kernels
+                ddp_step(model, statics, batch, draws, cfg)
+                step = ddp_step(model, statics, batch, draws, cfg)
+                step = {k: step[k] for k in ("metrics", "step_ms", "reduce_ms")}
+            else:
+                step = _deterministic(ddp_step, model, statics, batch, draws, cfg)
+                step["grads"] = {k: v.cpu() for k, v in step["grads"].items()}
+                step["buffers"] = {k: v.cpu() for k, v in step["buffers"].items()}
+            step.update(peak_bytes=torch.cuda.max_memory_allocated(), broadcast_s=broadcast_s,
+                        weights_sum=weights_sum)
+            out[dtype] = step
+            del model, statics
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        out["eval"] = infer_cli.main(DDP_EVAL_ARGV)
+        out["eval_seconds"] = time.time() - t0
+        torch.save(out, os.path.join(DDP_DIR, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(DDP_DIR, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def _spawn_ranks(world: int, timeout: float) -> list:
+    """Each rank's results of `_ddp_rank`; raises if one failed or hung."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ddp_rank, args=(r, world)) for r in range(world)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.time() - t0)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = []
+    for r in range(world):
+        path = os.path.join(DDP_DIR, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                errs.append(f.read())
+    if hung or errs or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ddp ranks: hung {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(errs))
+    return [torch.load(os.path.join(DDP_DIR, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def ddp_compare(one, nudged, ranks) -> dict:
+    """The two ranks' fp32 step against the one process's (module comment
+    above DDP_SPREAD_MULTIPLE): a report with the failures under "bad"."""
+    import torch
+
+    got = ranks[0]
+    bad = []
+    if got["weights_sum"] != ranks[1]["weights_sum"] or got["weights_sum"] != one["weights_sum"]:
+        bad.append("the ranks' weights differ from each other's or this process's")
+    for what in ("grads", "buffers"):
+        if not all(torch.equal(v, ranks[1][what][k]) for k, v in got[what].items()):
+            bad.append(f"the two ranks' {what} differ")
+    loss_gap, hist_apart = {}, {}
+    for k, want in one["metrics"].items():
+        g = got["metrics"][k]
+        if k.startswith("grad_norm"):
+            continue
+        if k.startswith("metric_"):  # an argmax near a tie may flip: reported only
+            hist_apart[k] = [float((g - want).abs().sum())] + [
+                float((n["metrics"][k] - want).abs().sum()) for n in nudged]
+            continue
+        gap = float((g - want).abs().max())
+        moved = max(float((n["metrics"][k] - want).abs().max()) for n in nudged)
+        loss_gap[k] = [gap, moved]
+        if not (gap <= TRAIN_TOL["loss"] * (1 + float(want.abs().max()))
+                or gap <= DDP_SPREAD_MULTIPLE * moved):
+            bad.append(f"{k}: {float(g)} against {float(want)} (nudged: {moved} apart)")
+    rows = []
+    for what in ("grads", "buffers"):
+        for k, want in one[what].items():
+            if not want.is_floating_point() or float(want.float().norm()) == 0:
+                continue
+            want = want.cpu()
+            gap = _rel(got[what][k], want)
+            sp = max(_rel(n[what][k], want) for n in nudged)
+            rows.append((gap / max(sp, 1e-30), gap, sp, k))
+            if not (gap <= TRAIN_TOL["grad_l2"] or gap <= DDP_SPREAD_MULTIPLE * sp):
+                bad.append(f"{k}: relative L2 {gap}, nudged {sp}")
+    names = list(one["grads"])
+
+    def flat(grads):
+        return torch.cat([grads[k].cpu().float().reshape(-1) for k in names])
+
+    ref = flat(one["grads"])
+    whole = _rel(flat(got["grads"]), ref)
+    whole_spread = max(_rel(flat(n["grads"]), ref) for n in nudged)
+    if not (whole <= TRAIN_TOL["grad_l2"] or whole <= DDP_SPREAD_MULTIPLE * whole_spread):
+        bad.append(f"the whole gradient: relative L2 {whole}, nudged {whole_spread}")
+    rows.sort(reverse=True)
+    return {"loss_gap_and_nudged": loss_gap, "histogram_points_apart_and_nudged": hist_apart,
+            "whole_grad_rel_l2": whole, "whole_grad_nudged": whole_spread, "leaves": len(rows),
+            "worst_gap_over_nudged": [[k, gap, sp] for _, gap, sp, k in rows[:6]],
+            "worst_gap": sorted(([gap, k] for _, gap, _, k in rows), reverse=True)[:6],
+            "bad": bad}
+
+
+def ddp_phase(caps) -> None:
+    """`parallel/mesh.py` on the card, the B15N4 training build, one batch of
+    two views (view 0 all novel, view 1 all base: unequal masks, points and
+    flagged masks) with fixed point draws. (a) bf16, the configs' type: one
+    step with a one-process NCCL group equals the same step with no group,
+    bit for bit (losses, every master gradient, the BatchNorm statistics),
+    under deterministic algorithms. (b) Two ranks spawned on the one card
+    over gloo (NCCL refuses two ranks on one card), one view each, against
+    one process at batch 2: two bf16 steps in the default mode each, the
+    second timed (step ms, the reductions' ms, peak bytes a rank); an fp32 step under
+    deterministic algorithms each, held to the one process's by
+    `ddp_compare` (the ranks' gradients and statistics bit-equal to each
+    other's). (c) The same ranks run the CLI's sharded eval of two
+    synthetic scenes (one a rank) and their summed meters give the
+    one-process run's summary exactly."""
+    import math
+    import shutil
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from xmask3d_tpu_torch.engine import infer_cli
+    from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+    from xmask3d_tpu_torch.ops.point_sample import point_draws
+
+    t0 = time.time()
+    cfg = _ddp_cfg("bfloat16")
+    batch = train_batch(cfg, caps, seed=400, batch=2)
+    dev = batch["img"].device
+    t = batch["target_labels"].shape[1]
+    report = {"phase": "ddp_setup", "targets": batch["target_valid"].sum(1).tolist(),
+              "live_points": batch["point_valid"].sum(1).tolist(), "novel_view": 0,
+              "base_view": 1}
+    one, nudged = {}, []
+    for dtype in ("bfloat16", "float32"):
+        cfg = _ddp_cfg(dtype)
+        model = build_train_model(cfg, seed=0)
+        mc = model.cfg
+        statics = build_statics(model, cfg)
+        labels = label_tree(model)
+        if dtype == "bfloat16":
+            draws = point_draws(torch.Generator(device=dev).manual_seed(0), mc.dec_layers + 1, 2,
+                                t, mc.num_points, mc.oversample_ratio, mc.importance_sample_ratio,
+                                device=dev)
+        start = {n: v.detach().clone() for n, v in model.state_dict().items()
+                 if labels.get(n, "buffer") != "frozen"}
+        weights_sum = _weights_sum(model)
+
+        def run(b, deterministic=True):
+            model.load_state_dict(start, strict=False)
+            torch.cuda.reset_peak_memory_stats()
+            out = _deterministic(ddp_step, model, statics, b, draws, cfg) if deterministic \
+                else ddp_step(model, statics, b, draws, cfg)
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return out
+
+        if dtype == "bfloat16":
+            run(batch, deterministic=False)  # the second step is timed: the first loads
+            timed = run(batch, deterministic=False)
+            report.update(bf16_one_process_step_ms=timed["step_ms"],
+                          bf16_one_process_peak_bytes=timed["peak_bytes"])
+            del timed
+            # (a) world size 1 over NCCL against no process group
+            base = run(batch)
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                                    world_size=1)
+            try:
+                nccl = run(batch)
+            finally:
+                dist.destroy_process_group()
+            same = {what: all(torch.equal(nccl[what][k], v) for k, v in base[what].items())
+                    for what in ("metrics", "grads", "buffers")}
+            log({"phase": "ddp_world1_nccl", "bit_equal": same, "deterministic": True,
+                 "step_ms": [base["step_ms"], nccl["step_ms"]], "reduce_ms": nccl["reduce_ms"],
+                 "grad_leaves": len(base["grads"])})
+            if not all(same.values()):
+                raise AssertionError(f"one-process NCCL group against no group: {same}")
+            del base, nccl
+        else:
+            # (b)'s reference in fp32, and its own spread under nudged inputs
+            one = run(batch)
+            one["weights_sum"] = weights_sum
+            for seed in DDP_NUDGE_SEEDS:
+                g = torch.Generator(device=dev).manual_seed(seed)
+                feats = batch["voxel_feats"]
+                noise = torch.randn(feats.shape, generator=g, device=dev)
+                out = run(dict(batch, voxel_feats=feats * (1 + DDP_NUDGE * noise)))
+                nudged.append({k: {n: v.cpu() for n, v in out[k].items()}
+                               for k in ("metrics", "grads", "buffers")})
+                del out
+        del model, statics, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["seconds"] = time.time() - t0
+    log(report)
+
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    os.makedirs(DDP_DIR)
+    try:
+        torch.save({"batch": batch, "draws": draws}, os.path.join(DDP_DIR, "inputs.pt"))
+        t0 = time.time()
+        ranks = _spawn_ranks(2, 900.0)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    ranks_seconds = time.time() - t0
+
+    cmp = ddp_compare(one, nudged, [r["float32"] for r in ranks])
+    bad = cmp.pop("bad")
+    one_eval = infer_cli.main(DDP_EVAL_ARGV)
+    eval_equal = {k: all(r["eval"][k] == v or (math.isnan(r["eval"][k]) and math.isnan(v))
+                         for r in ranks)
+                  for k, v in one_eval.items() if k != "scenes_per_sec"}
+    if not all(eval_equal.values()):
+        bad.append(f"sharded eval differs: {[k for k, v in eval_equal.items() if not v]}")
+    log({"phase": "ddp_two_ranks", "backend": "gloo", "ranks": 2, "batch": 2,
+         "seconds": ranks_seconds, "device": [r["device"] for r in ranks],
+         "bf16_step_ms": [r["bfloat16"]["step_ms"] for r in ranks],
+         "bf16_reduce_ms": [r["bfloat16"]["reduce_ms"] for r in ranks],
+         "bf16_peak_bytes": [r["bfloat16"]["peak_bytes"] for r in ranks],
+         "bf16_broadcast_s": [r["bfloat16"]["broadcast_s"] for r in ranks],
+         "fp32_step_ms": [r["float32"]["step_ms"] for r in ranks],
+         "fp32_one_process_step_ms": one["step_ms"],
+         "fp32_reduce_ms": [r["float32"]["reduce_ms"] for r in ranks],
+         "fp32_peak_bytes": [r["float32"]["peak_bytes"] for r in ranks],
+         "fp32_one_process_peak_bytes": one["peak_bytes"], **cmp,
+         "eval_summary": one_eval, "eval_seconds": [r["eval_seconds"] for r in ranks],
+         "eval_equal": all(eval_equal.values()), "bad": bad[:10]})
+    if bad:
+        raise AssertionError("ddp: " + "; ".join(bad[:10]))
+
+
 def main() -> int:
     import torch
 
@@ -2381,11 +2922,13 @@ def main() -> int:
                     synthetic_batch(1, caps, seed=101, num_points=20000, image_size=(512, 512),
                                     mask_shape=tuple(cfg.mask_shape), context_length=77,
                                     vocab_size=49408))
+    txt2img_phase(model, cfg, statics, table)
     del model, statics, scenes
     gc.collect()
     torch.cuda.empty_cache()
 
     train_phase(cfg, caps, table)
+    ddp_phase(caps)
 
     log(reference_check(CONFIG))
     log(reference_check(CONFIG, fused_gn=True))

@@ -4,7 +4,9 @@
   conversion tool runs where neither they nor yaml can be imported.
 - Entry points run on the GPU unless the caller asks for the CPU; without a
   GPU they raise instead of falling back, and `chip_smoke.py` exits
-  non-zero without printing a result.
+  non-zero without printing a result. `init_distributed` follows the same
+  rule, and no environment switch routes a kernel wrapper's CUDA tensor to
+  its plain version.
 - The port's own config loader reads what the JAX package's reads.
 - `load_jax_variables` carries every leaf by its rule and rejects a
   missing, extra or misshapen one.
@@ -78,6 +80,79 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env=env, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_import_guards_cover_the_parallel_and_sampling_modules():
+    """The scans above walk the whole package: the data-parallel layer and
+    the diffusion sampling modules are among what they import."""
+    mods = set(_port_modules())
+    for m in ("parallel.mesh", "models.diffusion", "models.txt2img", "models.resample"):
+        assert f"xmask3d_tpu_torch.{m}" in mods, m
+
+
+def test_no_environment_switch_reaches_the_kernel_wrappers():
+    """A wrapper takes its plain version for CPU tensors only: the kernel
+    wrappers and the data-parallel layer read no environment variable but
+    the toolkit's location and torchrun's rank variables, so nothing
+    outside the call can send a CUDA tensor to the plain version (the env
+    switches the port has, such as XMASK3D_FUSED_GN, choose modules, not
+    routes of a kernel)."""
+    allowed = {"CUDA_HOME", "RANK", "WORLD_SIZE", "LOCAL_RANK"}
+    files = glob.glob(os.path.join(PORT, "ops", "*.py"))
+    files.append(os.path.join(PORT, "parallel", "mesh.py"))
+    assert len(files) >= 9
+    read, bad = set(), []
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for stmt in ast.walk(tree):
+            if isinstance(stmt, (ast.If, ast.While)):
+                part = stmt.test  # the condition, not the body
+            elif isinstance(stmt, ast.stmt) and not isinstance(
+                    stmt, (ast.FunctionDef, ast.ClassDef, ast.Try, ast.For, ast.With)):
+                part = stmt
+            else:
+                continue
+            if not any(isinstance(n, ast.Attribute) and n.attr in ("environ", "getenv")
+                       for n in ast.walk(part)):
+                continue
+            names = {n.value for n in ast.walk(part) if isinstance(n, ast.Constant)
+                     and isinstance(n.value, str) and n.value.isupper()}
+            read |= names
+            if not names or names - allowed:
+                bad.append(f"{os.path.relpath(path, ROOT)}:{stmt.lineno} {sorted(names)}")
+    assert not bad, bad
+    assert read == allowed, read
+
+
+def test_init_distributed_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """Without torchrun's variables: no process group, this process's
+    device. With them: a gloo group for `device="cpu"`; without CUDA and
+    without that request it raises, before any group is made."""
+    import torch.distributed as dist
+
+    from xmask3d_tpu_torch.parallel import mesh
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_distributed()
+    assert mesh.init_distributed("cpu") == torch.device("cpu") and not mesh.distributed()
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_distributed(init_method=f"file://{tmp_path / 'rdzv'}")
+    assert not mesh.distributed()
+    try:
+        dev = mesh.init_distributed("cpu", init_method=f"file://{tmp_path / 'rdzv'}")
+        assert dev.type == "cpu" and mesh.distributed() and dist.get_backend() == "gloo"
+        assert (mesh.rank(), mesh.world_size()) == (0, 1)
+        x = torch.arange(4.0)
+        assert torch.equal(mesh.global_sum(x), x)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_conversion_cli_runs_without_yaml_jax_or_the_jax_package(tmp_path):

@@ -342,13 +342,13 @@ def scenes_both():
     load_jax_variables(port, jax.device_get(variables))
     pstep, proute = infer_cli.make_infer_step(port, pcfg)
     record = []
+    p_statics = {k: torch.from_numpy(np.array(v)) for k, v in statics.items()}
     got = infer_cli.run_eval_scenes(
         [synthetic_scene(Capacities(1024, 1024, 8), seed=100 + i, **skw) for i in range(2)], 2,
-        cfg=pcfg, caps=Capacities(1024, 1024, 8),
-        statics={k: torch.from_numpy(np.array(v)) for k, v in statics.items()},
+        cfg=pcfg, caps=Capacities(1024, 1024, 8), statics=p_statics,
         infer_step=pstep, route_2d=proute, device="cpu", record=record)
     return {"want": want, "got": got, "record": record, "jax_preds": jax_preds,
-            "jax_accs": jax_accs, "port": port}
+            "jax_accs": jax_accs, "port": port, "statics": p_statics, "scene_kw": skw}
 
 
 def test_run_eval_scenes_with_fused_gn_matches_jax(scenes_both):

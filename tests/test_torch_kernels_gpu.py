@@ -268,6 +268,20 @@ def test_gn_silu_conv_path_widths_and_variants(cuda, bsz, c, cout, h, w, variant
                (x.to(dt), scale, bias, wt, b, gn_groups(c)), {}, tol)
 
 
+@pytest.mark.parametrize("c,cout,hw", [(512, 256, 256), (256, 256, 256), (256, 128, 512),
+                                       (128, 128, 512)])
+def test_gn_silu_conv_at_the_vae_decoders_full_levels(cuda, c, cout, hw):
+    """The VAE decoder's 256^2 and 512^2 levels, which only the sampler's
+    full decode runs (up to 128 MiB of bf16 input a call): the tensor-core
+    conv with 128 output channels a block, against the plain version."""
+    rng = np.random.RandomState(c + cout + hw)
+    x, scale, bias, wt, b = _gn_args(rng, 1, hw, hw, c, cout, cuda)
+    assert tgc.variant(x.bfloat16(), wt) == "wgmma_n128"
+    for dt, tol in DTYPES:
+        _close(tgc.gn_silu_conv, tgc.gn_silu_conv_reference,
+               (x.to(dt), scale, bias, wt, b, gn_groups(c)), {}, tol)
+
+
 def test_gn_silu_conv_batches_with_different_statistics(cuda):
     """B = 2 whose batches differ by 40x in spread and by a mean of -20, and
     groups of mean 30 and spread 0.5; the bf16 x is also read through a view

@@ -141,17 +141,24 @@ def zero_safe_cosine_loss(a, b, eps=1e-8):
     return 1.0 - (unit(a) * unit(b)).sum(-1)
 
 
-@pytest.fixture(scope="module")
-def step_pair():
-    jcfg = _cfg(jax_load_config)
+def synthetic_train_batch(seed=0):
+    """The step's batch of two 128x128 views. Synthetic base/novel labels
+    are drawn per point, so no mask would be novel- or base-dominant and
+    loss_3d_contra would be 0: view 0 is made all novel and view 1 all base,
+    so the term and its gradient are live."""
     caps = JaxCapacities(max_points=512, max_voxels=256, max_targets=8)
-    batch_np = jax_synthetic_batch(2, caps, seed=0, num_points=400, image_size=(IMAGE, IMAGE),
+    batch_np = jax_synthetic_batch(2, caps, seed=seed, num_points=400, image_size=(IMAGE, IMAGE),
                                    mask_shape=(24, 32), context_length=16, vocab_size=512)
-    # synthetic base/novel labels are drawn per point, so no mask would be
-    # novel- or base-dominant and loss_3d_contra would be 0: view 0 is all
-    # novel and view 1 all base, so the term and its gradient are live
     batch_np["binary_label_3d"][0] = 0.0
     batch_np["binary_label_3d"][1] = 1.0
+    return batch_np
+
+
+def jax_and_port_step(batch_np):
+    """One training step of the JAX package's `make_train_step` (jitted) and
+    of the port's, from the same weights, statics and point draws, on
+    `batch_np` (numpy, the JAX layout)."""
+    jcfg = _cfg(jax_load_config)
     batch = jax.tree_util.tree_map(jnp.asarray, batch_np)
     mc = model_config_from_cfg(jcfg, tiny=True)
     model = JaxXMask3D(cfg=mc)
@@ -189,6 +196,11 @@ def step_pair():
     return {"jax": metrics, "port": p_metrics, "mu": mu, "stats": _flat(new.batch_stats),
             "state": p_state, "variables": variables, "batch_np": batch_np,
             "statics": p_statics, "draws": draws}
+
+
+@pytest.fixture(scope="module")
+def step_pair():
+    return jax_and_port_step(synthetic_train_batch())
 
 
 def test_train_step_losses_match_jax(step_pair):
@@ -415,12 +427,14 @@ def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 def test_trainer_logs_the_config_keys_it_does_not_honour(tmp_path):
-    """B15N4 sets `mesh_shape` and `donate_state`, which the JAX trainer
-    obeys and the port's does not yet: the trainer logs one warning for
-    each, naming what it does instead and the ROADMAP item that ports the
-    key (none for `donate_state`, whose in-place update leaves nothing to
-    port); a config without them logs nothing. `workers` and
-    `remat_backbone`, which the trainer honours, are not among them."""
+    """B15N4 sets `donate_state`, which the JAX trainer obeys and the
+    port's does not: the trainer logs one warning, naming what it does
+    instead (no ROADMAP item: its in-place update leaves nothing to port);
+    a config without it logs nothing. B15N4's `mesh_shape` ({data: -1,
+    model: 1}) is what the process group gives, so it is not logged; a
+    model axis above 1 (tensor parallelism, ROADMAP A 6) or a data axis
+    other than the world size is. `workers` and `remat_backbone`, which
+    the trainer honours, are not among them."""
     import logging
 
     lines = []
@@ -439,10 +453,15 @@ def test_trainer_logs_the_config_keys_it_does_not_honour(tmp_path):
         for key in trainer.UNHONOURED_KEYS:
             cfg.pop(key)
         trainer.log_unhonoured_keys(cfg)
+        assert not lines
+        for mesh in ({"data": -1, "model": 2}, {"data": 4, "model": 1}):
+            cfg["mesh_shape"] = mesh
+            trainer.log_unhonoured_keys(cfg)
+        mesh_lines = list(lines)
     finally:
         trainer.logger.removeHandler(handler)
-    assert not lines
-    assert [ln.split()[2] for ln in got] == ["mesh_shape", "donate_state"]
-    for ln, item in zip(got, ("ROADMAP A 6", "no ROADMAP item")):
-        assert item in ln, ln
+    assert [ln.split()[2] for ln in got] == ["donate_state"]
+    assert "no ROADMAP item" in got[0], got[0]
+    assert [ln.split()[2] for ln in mesh_lines] == ["mesh_shape", "mesh_shape"]
+    assert all("ROADMAP A 6" in ln for ln in mesh_lines), mesh_lines
     assert _cfg(load_config)["remat_backbone"] is True

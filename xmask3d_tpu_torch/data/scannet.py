@@ -47,6 +47,7 @@ from xmask3d_tpu_torch.data.augmentation import (
 from xmask3d_tpu_torch.data.batching import Capacities, ViewSample, collate_views
 from xmask3d_tpu_torch.data.projection import get_scannet_mapper
 from xmask3d_tpu_torch.data.voxelizer import Voxelizer
+from xmask3d_tpu_torch.parallel.mesh import rows_of_rank
 
 
 def _imread(path: str) -> np.ndarray:
@@ -363,16 +364,21 @@ class ScanNetViews:
                 return sample
         raise RuntimeError(f"no acceptable view for scene {index}")
 
-    def batch(self, indices: Sequence[int], device=None, seed: Optional[int] = None) -> Dict:
+    def batch(self, indices: Sequence[int], device=None, seed: Optional[int] = None,
+              rank_rows: bool = False) -> Dict:
         """The views of `indices` collated on `device`; the train split
         draws its views and one grid-alignment jitter a batch from the
         loader's rng, as the JAX loader does, or, with `seed`, from a
         RandomState of that seed alone. Prefetch threads take the seeded
         form: the loader's rng is drawn only in the thread that hands out
         the seeds, so which batch gets which draws does not depend on the
-        threads' timing."""
+        threads' timing. With `rank_rows` every view is still drawn, so the
+        draws are those of one process, but only this rank's rows are
+        collated (`parallel/mesh.py` `rows_of_rank`)."""
         rng = self.rng if seed is None else np.random.RandomState(seed)
         samples = [self.get(i, rng) for i in indices]
+        if rank_rows:
+            samples = rows_of_rank(samples)
         jitter_rng = rng if self.cfg.split == "train" else None
         return collate_views(samples, self.caps, device=device, grid_jitter_rng=jitter_rng)
 

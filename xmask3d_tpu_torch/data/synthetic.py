@@ -13,6 +13,7 @@ import numpy as np
 from xmask3d_tpu_torch.data.batching import Capacities, ViewSample, collate_views
 from xmask3d_tpu_torch.data.tokenizer import build_tokenizer
 from xmask3d_tpu_torch.data.voxelizer import Voxelizer
+from xmask3d_tpu_torch.parallel.mesh import rows_of_rank
 
 
 def _room_surface_points(rng: np.random.RandomState, n: int, room=(4.0, 4.0, 2.5),
@@ -179,14 +180,18 @@ def synthetic_batch(
     vocab_size: int = 49408,
     device=None,
     device_hierarchy: bool = False,
+    rank_rows: bool = False,
 ) -> Dict:
     """`batch_size` synthetic views from `seed`, collated on `device`; with
     `device_hierarchy` the batch ships voxel coords and counts in place of
-    the hierarchy (`collate_views`)."""
+    the hierarchy (`collate_views`). With `rank_rows` only this process's
+    rows of them are collated (`parallel/mesh.py` `rows_of_rank`)."""
     rng = np.random.RandomState(seed)
     samples = [
         synthetic_view_sample(rng, caps, num_points, num_classes, image_size,
                               mask_shape, context_length, vocab_size)
         for _ in range(batch_size)
     ]
+    if rank_rows:
+        samples = rows_of_rank(samples)
     return collate_views(samples, caps, device=device, device_hierarchy=device_hierarchy)

@@ -12,8 +12,9 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """`None` means the current CUDA device; "cpu" must be asked for. A
-    CUDA device without an index is the current one."""
+    """`None` means the current CUDA device (under torchrun `cuda:LOCAL_RANK`,
+    which `parallel/mesh.py` `init_distributed` makes current); "cpu" must
+    be asked for. A CUDA device without an index is the current one."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -19,6 +19,11 @@ and ground-truth labels as coloured point clouds. On the GPU every view's forwar
 the first view and replayed for the others (`engine/graphs.py`);
 `main(argv, device="cpu")` runs the same steps eagerly on the CPU with the
 plain versions of the kernels.
+
+Under torchrun (`torchrun --nproc_per_node N -m xmask3d_tpu_torch.engine.infer_cli
+...`) scene i runs on rank i % N, as the JAX CLI shards, each rank with its
+own model and captured graphs, and the IoU meters are summed over the ranks
+before the summary (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from xmask3d_tpu_torch.engine.infer import (
     summarize_iou,
     view_scene_ids,
 )
+from xmask3d_tpu_torch.parallel.mesh import all_reduce_acc, init_distributed, scenes_of_rank
 from xmask3d_tpu_torch.utils.logging import get_logger
 
 logger = get_logger()
@@ -192,8 +198,9 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
                     save_ply: str = "", builder: str = "native") -> Dict[str, float]:
     """The whole-scene protocol over an iterator of scene dicts: per-view
     forward + routing, multi-view voting, KD-tree fill, and base/novel/hIoU
-    meters for the three streams (suffixes "", "_2d", "_3d"), plus
-    scenes_per_sec over the n scenes. With `scene_reuse` each scene goes
+    meters for the three streams (suffixes "", "_2d", "_3d"), summed over
+    the ranks of a process group, plus scenes_per_sec over this process's n
+    scenes. With `scene_reuse` each scene goes
     through `run_scene_reuse` (`infer_step` from `make_reuse_infer_step`,
     with `scene_3d_step` and `scene_caps`); otherwise each view's hierarchy
     is built on the host by `builder` (`run_scene`). With `record`, one dict
@@ -239,6 +246,7 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
                                      scene["coords"], scene["labels"].astype(np.int64))
         logger.info(f"scene {scene['name']} done ({len(scene['views'])} views)")
     dt = time.time() - t0
+    acc = all_reduce_acc(acc)
     summary: Dict[str, float] = {}
     for s in STREAMS:
         suffix = "" if s == "pred" else "_" + s.split("_")[1]
@@ -250,7 +258,8 @@ def run_eval_scenes(scene_iter: Iterable[Dict], n: int, *, cfg, caps, statics, i
 
 
 def _scannet_scenes(cfg, caps, args):
-    """(scene dict iterator, count) of the val split under cfg.data_root."""
+    """(scene dict iterator, count) of this rank's scenes of the val split
+    under cfg.data_root."""
     from xmask3d_tpu_torch.data.scannet import ScanNetConfig, ScanNetSceneViews
     from xmask3d_tpu_torch.data.tokenizer import require_real_tokenizer
 
@@ -264,13 +273,13 @@ def _scannet_scenes(cfg, caps, args):
     tok = data_tokenizer(cfg, tiny=args.tiny)
     require_real_tokenizer(tok, args.allow_hash_tokenizer)
     ds = ScanNetSceneViews(ds_cfg, caps, tok)
-    n = args.num_scenes or len(ds.data_paths)
-    return (ds.scene(i) for i in range(n)), n
+    ids = scenes_of_rank(args.num_scenes or len(ds.data_paths))
+    return (ds.scene(i) for i in ids), len(ids)
 
 
 def main(argv=None, device=None):
     args = get_parser().parse_args(argv)
-    dev = resolve_device(device)
+    dev = init_distributed(device)
     cfg = load_config(args.config, args.opts)
     caps = capacities_from_cfg(cfg)
     if not args.synthetic:
@@ -303,9 +312,10 @@ def main(argv=None, device=None):
             vocab_size=49408,
         )
         kw2.pop("num_points", None)
-        n = args.num_scenes
+        ids = scenes_of_rank(args.num_scenes)
+        n = len(ids)
         scenes = (synthetic_scene(caps, seed=100 + i, num_points=1200, num_views=3,
-                                  num_classes=cfg.test_classes, **kw2) for i in range(n))
+                                  num_classes=cfg.test_classes, **kw2) for i in ids)
     scene_3d_step = scene_caps = None
     if args.scene_reuse:
         from xmask3d_tpu_torch.engine.scene_reuse import (

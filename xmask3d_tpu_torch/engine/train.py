@@ -1,14 +1,23 @@
 """Training entry point.
 
-Counterpart of `xmask3d_tpu/engine/train.py` on one device: config and
-overrides, seeding, the two-group AdamW train step, the contra-loss warm-up
-gate (`start_contra`), per-step learning rates, metric logging every
+Counterpart of `xmask3d_tpu/engine/train.py`: config and overrides,
+seeding, the two-group AdamW train step, the contra-loss warm-up gate
+(`start_contra`), per-step learning rates, metric logging every
 `print_freq` steps, validation every `eval_freq` epochs and checkpoints
 every `save_freq` epochs, and `--resume`.
 
     python -m xmask3d_tpu_torch.engine.train \\
         --config configs/scannet/xmask3d_scannet_B15N4.yaml --synthetic \\
         batch_size 2 epochs 1 steps_per_epoch 3
+    torchrun --nproc_per_node N -m xmask3d_tpu_torch.engine.train ...
+
+Under torchrun it trains data-parallel, one process a GPU
+(`parallel/mesh.py`): `batch_size` is the global batch, as under the JAX
+package's data mesh, and each rank builds the batch one process would
+build and keeps its rows of it, train and validation alike, so the world
+size does not change the math (up to summation order). Every rank starts
+from rank 0's weights and reads `--resume`; only rank 0 logs and writes
+checkpoints.
 
 Runs on the GPU; `main(argv, device="cpu")` runs the plain versions of the
 kernels on the CPU (with `--tiny` for a model of that size). Synthetic
@@ -40,6 +49,7 @@ from xmask3d_tpu_torch.engine.builder import (
 from xmask3d_tpu_torch.engine.train_step import create_train_state, make_optimizer, make_train_step
 from xmask3d_tpu_torch.engine.validate import make_validate_step, run_validation
 from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
+from xmask3d_tpu_torch.parallel.mesh import broadcast_module, init_distributed, rank, world_size
 from xmask3d_tpu_torch.utils.logging import MetricsWriter, get_logger
 
 logger = get_logger()
@@ -47,17 +57,25 @@ logger = get_logger()
 # config keys the JAX trainer obeys and this one does not: what it does
 # instead, and the ROADMAP item that ports the key
 UNHONOURED_KEYS = {
-    "mesh_shape": "the step runs on one device; distribution is ROADMAP A 6",
     "donate_state": "the step updates parameters, masters and optimizer state in place "
                     "whatever its value, so there is nothing to donate and no ROADMAP item",
 }
 
 
 def log_unhonoured_keys(cfg: Config) -> None:
-    """One warning for each key of UNHONOURED_KEYS the config sets."""
+    """One warning for each key of UNHONOURED_KEYS the config sets, and for
+    a `mesh_shape` the process group does not give: a `model` axis above 1
+    (tensor parallelism, ROADMAP A 6) or a `data` axis other than -1 or the
+    world size."""
     for key, why in UNHONOURED_KEYS.items():
         if key in cfg:
             logger.warning(f"config key {key} = {cfg[key]!r} is not honoured: {why}")
+    mesh = cfg.get("mesh_shape")
+    if mesh is not None and (mesh.get("model", 1) != 1
+                             or mesh.get("data", -1) not in (-1, world_size())):
+        logger.warning(f"config key mesh_shape = {mesh!r} is not honoured: the data axis is "
+                       f"the world size ({world_size()}), and a model axis is tensor "
+                       "parallelism, ROADMAP A 6")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -105,7 +123,7 @@ def make_data_iter(cfg: Config, caps: Capacities, synthetic: bool, tiny: bool = 
             seed = seed0
             while True:
                 yield synthetic_batch(cfg.batch_size, caps, seed=seed, num_classes=cfg.classes,
-                                      device=device, **kw)
+                                      device=device, rank_rows=True, **kw)
                 seed += 1
 
         return it(), None, None
@@ -141,10 +159,10 @@ def make_data_iter(cfg: Config, caps: Capacities, synthetic: bool, tiny: bool = 
             for idx in index_iter():
                 yield idx, int(ds.rng.randint(2**31 - 1))
 
-        built = parallel_map_iterator(lambda a: ds.batch(a[0], device="cpu", seed=a[1]),
-                                      seeded(), workers)
+        built = parallel_map_iterator(
+            lambda a: ds.batch(a[0], device="cpu", seed=a[1], rank_rows=True), seeded(), workers)
         return (to_device(b, dev) for b in built), len(order), ds
-    return (ds.batch(idx, device=device) for idx in index_iter()), len(order), ds
+    return (ds.batch(idx, device=device, rank_rows=True) for idx in index_iter()), len(order), ds
 
 
 def val_batch_count(val_samples, batch_size: int, val_batches_default: int = 4) -> int:
@@ -158,9 +176,12 @@ def val_batch_count(val_samples, batch_size: int, val_batches_default: int = 4) 
 def main(argv=None, device=None):
     """Train; returns {"step", "best_iou", "last_metrics", "val"} of the run."""
     args = get_parser().parse_args(argv)
-    dev = resolve_device(device)
+    dev = init_distributed(device)
     cfg = load_config(args.config, args.opts)
     caps = capacities_from_cfg(cfg)
+    if cfg.batch_size % world_size():
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {world_size()} ranks")
+    main_rank = rank() == 0
     log_unhonoured_keys(cfg)
     np.random.seed(cfg.manual_seed)
     torch.manual_seed(cfg.manual_seed)
@@ -168,8 +189,10 @@ def main(argv=None, device=None):
     data, n_samples, _ = make_data_iter(cfg, caps, args.synthetic, tiny=args.tiny,
                                         allow_hash_tokenizer=args.allow_hash_tokenizer,
                                         device=dev)
-    logger.info("=> creating model ...")
+    if main_rank:
+        logger.info(f"=> creating model ... ({world_size()} ranks)")
     model = build_train_model(cfg, tiny=args.tiny, seed=cfg.manual_seed, device=dev)
+    broadcast_module(model)
     statics = build_statics(model, cfg, device=dev)
 
     # epoch length from the dataset (its `loop` included); synthetic runs
@@ -190,9 +213,10 @@ def main(argv=None, device=None):
         state, meta = ckpt.restore(state)
         start_epoch = meta["step"] // steps_per_epoch
         best_iou = float(meta.get("best_iou", 0.0))
-        logger.info(f"resumed from step {meta['step']} (best_iou {best_iou:.4f})")
+        if main_rank:
+            logger.info(f"resumed from step {meta['step']} (best_iou {best_iou:.4f})")
 
-    writer = MetricsWriter(args.save_path)
+    writer = MetricsWriter(args.save_path) if main_rank else None
     val_data = val_ds = validate_step = None
     if cfg.evaluate:
         val_data, val_samples, val_ds = make_data_iter(
@@ -212,7 +236,7 @@ def main(argv=None, device=None):
             float(metrics["loss_total"])  # waits for the step
             t_data += t1 - t0
             t_step += time.time() - t1
-            if state.step % cfg.print_freq == 0:
+            if main_rank and state.step % cfg.print_freq == 0:
                 host = _host(metrics)
                 inter = metrics["metric_train_inter"].cpu().numpy()
                 union = metrics["metric_train_union"].cpu().numpy()
@@ -228,13 +252,15 @@ def main(argv=None, device=None):
             summary = run_validation(validate_step, statics, (next(val_data) for _ in range(n_val)),
                                      cfg.category_split.base_category,
                                      cfg.category_split.novel_category)
-            logger.info(f"val epoch {epoch}: {summary}")
-            writer.add_scalars(summary, state.step, prefix="val/")
             best_iou = max(best_iou, summary.get("hIoU", 0.0))
-        if (epoch + 1) % cfg.save_freq == 0:
+            if main_rank:
+                logger.info(f"val epoch {epoch}: {summary}")
+                writer.add_scalars(summary, state.step, prefix="val/")
+        if main_rank and (epoch + 1) % cfg.save_freq == 0:
             ckpt.save(state.step, state, best_iou=best_iou)
             logger.info(f"saved checkpoint at step {state.step} (best_iou {best_iou:.4f})")
-    writer.close()
+    if main_rank:
+        writer.close()
     return {"step": state.step, "best_iou": best_iou, "last_metrics": _host(metrics),
             "val": summary}
 

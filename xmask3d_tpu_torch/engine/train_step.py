@@ -8,6 +8,13 @@ them back. That is the JAX package's fp32 parameters and optax state with
 the cast at use. Each step sets both groups' learning rates from the
 schedule at the step count before the update, as optax evaluates it; the
 frozen group has no gradients and no optimizer state.
+
+Under a process group each rank's losses are its share of the global
+batch's (`losses/criterion.py`), so the masters' fp32 gradients are summed
+over the ranks (one bucketed all-reduce) before the gradient norms and the
+update, which then see the global gradient on every rank, as under the JAX
+package's data mesh. The step's point draws are made for the global batch
+from the generator every rank shares, and each rank takes its rows.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 
 from xmask3d_tpu_torch.engine.builder import label_tree
 from xmask3d_tpu_torch.ops.point_sample import point_draws
+from xmask3d_tpu_torch.parallel.mesh import all_reduce_sum_, rows_of_rank, world_size
 from xmask3d_tpu_torch.utils.lr_schedule import cosine_lr, poly_lr
 
 GROUPS = ("3d", "others")
@@ -39,26 +47,45 @@ class MasterAdamW:
             master = p if p.dtype == torch.float32 else p.detach().float().requires_grad_()
             self.pairs[labels[name]].append((p, master))
         self.schedules = [schedules[g] for g in GROUPS]
+        self._reduced = False
         self.adamw = torch.optim.AdamW(
             [{"params": [m for _, m in self.pairs[g]], "lr": base_lrs[g]} for g in GROUPS],
             betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
-    def grad_norms(self) -> Dict[str, torch.Tensor]:
-        """Each group's gradient norm (fp32), before `step`."""
-        return {g: torch.nn.utils.get_total_norm(
-            [p.grad.float() for p, _ in pairs if p.grad is not None])
-            for g, pairs in self.pairs.items()}
-
-    def step(self, step: int) -> None:
-        """One AdamW update at learning rates schedule(step). A trainable
-        parameter without a gradient takes a zero one (decay and moments
-        still move, as in optax), then every gradient is released."""
-        for group, sched in zip(self.adamw.param_groups, self.schedules):
-            group["lr"] = sched(step)
+    def reduce_gradients(self) -> None:
+        """Give every master its parameter's gradient in fp32 (zero where
+        the parameter has none) and, under a process group, sum the masters'
+        gradients over the ranks in one fp32 all-reduce. Runs once a step:
+        `grad_norms` and `step` call it; the parameters keep their own
+        gradients until `step`."""
+        if self._reduced:
+            return
+        grads = []
         for pairs in self.pairs.values():
             for p, m in pairs:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                m.grad = g if m is p else g.float()
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                if m is not p:
+                    m.grad = p.grad.float()
+                grads.append(m.grad)
+        all_reduce_sum_(grads)
+        self._reduced = True
+
+    def grad_norms(self) -> Dict[str, torch.Tensor]:
+        """Each group's gradient norm (fp32), before `step`: the global
+        gradient's under a process group."""
+        self.reduce_gradients()
+        return {g: torch.nn.utils.get_total_norm([m.grad for _, m in pairs])
+                for g, pairs in self.pairs.items()}
+
+    def step(self, step: int) -> None:
+        """One AdamW update at learning rates schedule(step) from the
+        masters' gradients (`reduce_gradients`). A trainable parameter
+        without a gradient takes a zero one (decay and moments still move,
+        as in optax), then every gradient is released."""
+        for group, sched in zip(self.adamw.param_groups, self.schedules):
+            group["lr"] = sched(step)
+        self.reduce_gradients()
         self.adamw.step()
         with torch.no_grad():
             for pairs in self.pairs.values():
@@ -67,6 +94,7 @@ class MasterAdamW:
                         p.copy_(m)
                         m.grad = None
                     p.grad = None
+        self._reduced = False
 
     def masters(self) -> Dict[str, List[torch.Tensor]]:
         return {g: [m for _, m in pairs] for g, pairs in self.pairs.items()}
@@ -135,18 +163,20 @@ def create_train_state(model: nn.Module, optimizer: MasterAdamW, seed: int = 0) 
 def make_train_step(loss_weight: Dict[str, float]):
     """train_step(state, batch, statics, contra_on, draws=None) -> metrics:
     forward with the step's point draws (made from the state's generator
-    unless given), weighted total, backward, AdamW update; advances
-    `state.step`. Metrics are detached device tensors: `loss_total`, every
-    loss term, the IoU histograms and `grad_norm_<group>`."""
+    unless given: this rank's rows of the global batch's), weighted total,
+    backward, AdamW update; advances `state.step`. Metrics are detached
+    device tensors: `loss_total`, every loss term and the IoU histograms
+    (of the global batch: summed over the ranks), and `grad_norm_<group>`."""
 
     def train_step(state: TrainState, batch, statics, contra_on: float,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         model, c = state.model, state.model.cfg
         if draws is None:
             b, t = batch["target_labels"].shape
-            draws = point_draws(state.generator, c.dec_layers + 1, b, t, c.num_points,
-                                c.oversample_ratio, c.importance_sample_ratio,
-                                device=batch["img"].device)
+            draws = rows_of_rank(point_draws(
+                state.generator, c.dec_layers + 1, b * world_size(), t, c.num_points,
+                c.oversample_ratio, c.importance_sample_ratio, device=batch["img"].device),
+                dim=1)
         losses, _ = model(batch, statics, train=True, draws=draws)
         total = weight_losses(losses, loss_weight, c.class_weight, c.mask_weight,
                               c.dice_weight, contra_on=contra_on)
@@ -156,6 +186,8 @@ def make_train_step(loss_weight: Dict[str, float]):
         state.step += 1
         metrics = {"loss_total": total.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()})
+        # every rank's share of the losses and histograms, added up
+        all_reduce_sum_(list(metrics.values()))
         metrics.update({f"grad_norm_{g}": n for g, n in norms.items()})
         return metrics
 

@@ -3,9 +3,10 @@
 Counterpart of `xmask3d_tpu/engine/validate.py`: the eval forward of each
 validation batch, the ensemble and base/novel routing, the 2D branch
 without the KD-tree fill (each point its own match), and per-stream IoU
-histograms summed on the host into the nine-number summary ({fused, 2d, 3d}
-x {mIoU_base, mIoU_novel, hIoU}). The trainer builds the step once and
-reuses it every validation pass.
+histograms summed on the host (and, under a process group, over the ranks,
+each of which validates its rows of every batch) into the nine-number
+summary ({fused, 2d, 3d} x {mIoU_base, mIoU_novel, hIoU}). The trainer
+builds the step once and reuses it every validation pass.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from xmask3d_tpu_torch.engine.infer import ensemble_and_route, fill_and_route_2d
+from xmask3d_tpu_torch.parallel.mesh import all_reduce_acc
 from xmask3d_tpu_torch.utils.metrics import hiou, intersection_and_union
 
 STREAMS = (("pred", ""), ("pred_2d", "_2d"), ("pred_3d", "_3d"))
@@ -66,8 +68,8 @@ def summarize_validation(hists: Dict[str, tuple], base_category, novel_category
 
 def run_validation(validate_step, statics, batches: Iterable, base_category,
                    novel_category) -> Dict[str, float]:
-    """Histograms of every batch, summed on the host, then summarised;
-    {} when there is no batch."""
+    """Histograms of every batch, summed on the host and over the ranks,
+    then summarised; {} when there is no batch (every rank runs as many)."""
     acc = None
     for batch in batches:
         hists = {k: tuple(t.cpu().numpy() for t in v)
@@ -76,4 +78,4 @@ def run_validation(validate_step, statics, batches: Iterable, base_category,
                                          for k in acc}
     if acc is None:
         return {}
-    return summarize_validation(acc, base_category, novel_category)
+    return summarize_validation(all_reduce_acc(acc), base_category, novel_category)

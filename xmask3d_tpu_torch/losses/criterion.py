@@ -5,6 +5,12 @@ point-sampled mask losses, loss_exact (per-point CE through the CLIP text
 bank), loss_contra (novel/base-dominant masks aligned to detached MaskCLIP
 embeddings), the caption cosine losses and the base/novel binary BCE. The
 mask loss takes its random coordinates as inputs (`ops/point_sample.py`).
+
+Every loss is a sum over the batch divided by a count. Under a process
+group the count is the global batch's (`parallel/mesh.py` `global_sum`,
+detached) and each rank returns its own sum over it, so the ranks' losses
+add up to the one-process loss of the global batch, as under the JAX
+package's data mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from xmask3d_tpu_torch.ops.point_sample import (
     sigmoid_ce_loss,
     uncertainty_sampled_points,
 )
+from xmask3d_tpu_torch.parallel.mesh import global_sum
 
 
 def _normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -43,7 +50,7 @@ def loss_labels(pred_logits: torch.Tensor, target_labels: torch.Tensor,
     tgt = tgt.scatter(1, match.long(), vals)
     ce = _log_softmax_pick(pred_logits, tgt)
     w = torch.where(tgt == num_classes, eos_coef, 1.0)
-    return (ce * w).sum() / w.sum().clamp(min=1e-8)
+    return (ce * w).sum() / global_sum(w.sum()).clamp(min=1e-8)
 
 
 def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
@@ -52,7 +59,8 @@ def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
                importance_sample_ratio: float = 0.75):
     """Point-sampled sigmoid-CE and dice losses of the matched (pred, target)
     pairs, on coordinates importance-sampled from `over` and `refill`
-    ((B * T, ..., 2) each)."""
+    ((B * T, ..., 2) each), over `num_masks` (the global count of valid
+    targets)."""
     b, t = match.shape
     h, w = pred_masks.shape[2:]
     matched = torch.gather(pred_masks, 1, match.long()[:, :, None, None].expand(b, t, h, w))
@@ -73,7 +81,7 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torc
                          ignore_label: int) -> torch.Tensor:
     keep = (valid & (labels != ignore_label)).float()
     ce = _log_softmax_pick(logits, labels.clamp(0, logits.shape[-1] - 1))
-    return (ce * keep).sum() / keep.sum().clamp(min=1.0)
+    return (ce * keep).sum() / global_sum(keep.sum()).clamp(min=1.0)
 
 
 def bank_logits(x: torch.Tensor, text_embed: torch.Tensor, null_embed: torch.Tensor,
@@ -136,7 +144,7 @@ def loss_contra(mask_3d: torch.Tensor, mask_logits: torch.Tensor,
     emb_3d = emb_3d / w.sum(-1, keepdim=True).clamp(min=1e-8)
     sv = sel_valid.float()
     total = (cosine_loss(emb_3d, gt) * sv).sum()
-    count = sv.sum()
+    count = global_sum(sv.sum())
     return torch.where(count > 0, total / count.clamp(min=1.0), torch.zeros((), device=total.device))
 
 
@@ -151,7 +159,7 @@ def binary_bce_loss(scores: torch.Tensor, labels: torch.Tensor, point_valid: tor
     x = scores.float()
     bce = pos_weight * y * F.softplus(-x) + (1 - y) * F.softplus(x)
     k = keep.float()
-    return (bce * k).sum() / k.sum().clamp(min=1.0)
+    return (bce * k).sum() / global_sum(k.sum()).clamp(min=1.0)
 
 
 def caption_cosine_loss(features: torch.Tensor, weight: torch.Tensor,
@@ -159,4 +167,5 @@ def caption_cosine_loss(features: torch.Tensor, weight: torch.Tensor,
     """1 - cos(weighted mean feature, caption embedding), averaged over scenes."""
     w = weight.float()[..., None]
     mean = (features.float() * w).sum(1) / w.sum(1).clamp(min=1e-8)
-    return cosine_loss(mean, caption_embed.float()).mean()
+    scenes = global_sum(torch.full((), float(features.shape[0]), device=features.device))
+    return cosine_loss(mean, caption_embed.float()).sum() / scenes

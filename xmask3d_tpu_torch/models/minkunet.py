@@ -18,6 +18,7 @@ from xmask3d_tpu_torch.ops.sparse_conv import (
     sparse_conv,
     sparse_conv_transpose,
 )
+from xmask3d_tpu_torch.parallel.mesh import all_reduce_with_grad
 
 
 def _zero_invalid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -31,7 +32,11 @@ class MaskedBatchNorm(nn.Module):
     `running = momentum * running + (1 - momentum) * batch`, with the
     unbiased variance, as the JAX package does; in eval mode it normalises
     with the running statistics. Params `scale`/`bias` and buffers
-    `mean`/`var` keep flax's names. One device: no cross-device sync."""
+    `mean`/`var` keep flax's names. Under a process group the count and the
+    moments' sums are added over the ranks before dividing, where the JAX
+    package `psum`s them, by a reduction whose backward adds the ranks'
+    gradients: the statistics, their gradient and the running statistics
+    are those of the global batch on every rank."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -43,11 +48,14 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if self.training:
+            c = x.shape[-1]
             m = valid[..., None].float()
             xf = x.float()
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(dim=(0, 1)) / cnt
-            var = ((xf * xf * m).sum(dim=(0, 1)) / cnt - mean * mean).clamp(min=0.0)
+            sums = all_reduce_with_grad(torch.cat([
+                m.sum().reshape(1), (xf * m).sum(dim=(0, 1)), (xf * xf * m).sum(dim=(0, 1))]))
+            cnt = sums[0].clamp(min=1.0)
+            mean = sums[1:1 + c] / cnt
+            var = (sums[1 + c:] / cnt - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * (cnt / (cnt - 1.0).clamp(min=1.0))
                 self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)

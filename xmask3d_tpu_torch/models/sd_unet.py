@@ -4,7 +4,9 @@ Counterpart of `xmask3d_tpu/models/sd_unet.py`. Self- and cross-attention
 run through kernel K2. The forward returns the taps (the concatenated
 [h, skip] inputs of the listed output blocks) and stops once the last one is
 taken: the eval path uses nothing after it (XLA removes that tail as dead
-code on the JAX side).
+code on the JAX side). With `full=True` it runs every output block and the
+output head and returns (eps, taps), as the JAX module does: the sampler's
+path (`models/txt2img.py`).
 """
 
 from __future__ import annotations
@@ -175,9 +177,9 @@ class SDUNet(nn.Module):
         self.out_norm = GroupNorm(ch)
         self.out_conv = Conv(ch, cfg.out_channels, 3, padding=1)
 
-    def forward(self, x, t, context, cond_emb=None) -> List[torch.Tensor]:
+    def forward(self, x, t, context, cond_emb=None, full: bool = False):
         """x (B, h, w, 4) noisy latent, t (B,), context (B, T, ctx) ->
-        the output-block taps."""
+        the output-block taps; with `full`, (eps (B, h, w, 4), taps)."""
         cfg = self.cfg
         dt = self.time_embed_0.weight.dtype
         emb = self.time_embed_0(timestep_embedding(t, cfg.model_channels).to(dt))
@@ -205,7 +207,7 @@ class SDUNet(nn.Module):
                 h = torch.cat([h, hs.pop()], dim=-1)
                 if out_idx in self.tap_indices:
                     taps.append(h)
-                    if out_idx == last:
+                    if out_idx == last and not full:
                         return taps
                 h = getattr(self, f"up_{lv}_res_{i}")(h, emb)
                 if lv in cfg.attention_levels:
@@ -213,4 +215,6 @@ class SDUNet(nn.Module):
                 if lv != 0 and i == cfg.num_res_blocks:
                     h = getattr(self, f"up_{lv}_upsample")(upsample2x_nearest(h))
                 out_idx += 1
-        return taps
+        if not full:
+            return taps
+        return self.out_conv(F.silu(self.out_norm(h))), taps

@@ -3,10 +3,12 @@
 Counterpart of `xmask3d_tpu/models/vae.py`: GroupNorm -> SiLU -> conv
 resblocks, each stage either as three modules (the default) or, with
 `fused_gn`, as one call of kernel K4 (`ops/gn_conv.py`) on the same
-parameters; single-head mid-block attention through kernel K2. The encoder and decoder return the inputs of the flattened blocks listed
-in their tap indices; the decoder stops once its last tap is taken, since
+parameters; single-head mid-block attention through kernel K2. The encoder
+and decoder return the inputs of the flattened blocks listed in their tap
+indices. `decode_taps` stops the decoder once its last tap is taken, since
 the eval path uses only the taps (the rest of the decoder is dead code that
-XLA removes on the JAX side).
+XLA removes on the JAX side); `decode` runs every level and the output head
+and returns (rgb, taps), the sampler's path.
 """
 
 from __future__ import annotations
@@ -174,8 +176,10 @@ class VAEDecoder(nn.Module):
         self.norm_out = GroupNorm(ch)
         self.conv_out = Conv(ch, 3, 3, padding=1)
 
-    def forward(self, z) -> List[torch.Tensor]:
-        """Decoder taps only: stops once the last tap is taken."""
+    def forward(self, z, full: bool = False):
+        """The decoder taps, stopping once the last one is taken; with
+        `full`, (rgb (B, H, W, 3), taps) after every level, `norm_out`
+        (plain GroupNorm), SiLU and `conv_out`."""
         c = self.cfg
         taps, flat_idx = [], 0
         last = max(self.tap_indices)
@@ -185,13 +189,15 @@ class VAEDecoder(nn.Module):
             for i_block in range(c.num_res_blocks + 1):
                 if flat_idx in self.tap_indices:
                     taps.append(h)
-                    if flat_idx == last:
+                    if flat_idx == last and not full:
                         return taps
                 h = getattr(self, f"up_{i_level}_block_{i_block}")(h)
                 flat_idx += 1
             if i_level != 0:
                 h = getattr(self, f"up_{i_level}_upsample")(h)
-        return taps
+        if not full:
+            return taps
+        return self.conv_out(F.silu(self.norm_out(h))), taps
 
 
 class AutoencoderKL(nn.Module):
@@ -213,3 +219,7 @@ class AutoencoderKL(nn.Module):
 
     def decode_taps(self, latent):
         return self.decoder(self.post_quant_conv(latent / self.cfg.scale_factor))
+
+    def decode(self, latent):
+        """(rgb, taps) of the whole decoder."""
+        return self.decoder(self.post_quant_conv(latent / self.cfg.scale_factor), full=True)

@@ -37,6 +37,7 @@ from xmask3d_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device
 from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
 from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
+from xmask3d_tpu_torch.parallel.mesh import global_sum
 from xmask3d_tpu_torch.utils.metrics import intersection_and_union
 
 
@@ -224,7 +225,7 @@ class XMask3D(nn.Module):
         tl, tv = batch["target_labels"], batch["target_valid"]
         target_masks = (batch["label_2d"][:, None] == tl[:, :, None, None]).float() \
             * tv[:, :, None, None]
-        num_masks = tv.sum().float().clamp(min=1.0)
+        num_masks = global_sum(tv.sum().float()).clamp(min=1.0)  # over the global batch
 
         # matcher of every layer: one host copy of all cost matrices
         costs = torch.stack([

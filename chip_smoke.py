@@ -123,6 +123,14 @@ Phases, each of which raises on failure:
      two ranks spawned on the card over gloo against one process at batch
      2 (bf16 timed, fp32 held to it), and the CLI's eval sharded over the
      two ranks equal to one process's;
+     `tp` (`tp_phase`): tensor parallelism of the dense towers through
+     `parallel/tensor.py`: two ranks on the card over gloo on a (1, 2) mesh
+     at batch 2, each holding its slices of the sharded layers: an fp32
+     step held to the one process's as `ddp`'s is (the sharded gradients
+     made whole), bf16 steps for ms a rank, the model group's collectives
+     and parameter and peak bytes a rank, one validation batch equal to
+     one process's, and every K2 call of the step at the rank's heads held
+     against its plain version and timed per shape;
   7. the tiny model on the card (fp32, kernels) against the same model on
      the CPU (plain versions), unfused and with `fused_gn`, and one training
      step of it, losses and gradients leaf by leaf.
@@ -2553,14 +2561,15 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
 
 
-def _spawn_ranks(world: int, timeout: float) -> list:
-    """Each rank's results of `_ddp_rank`; raises if one failed or hung."""
+def _spawn_ranks(world: int, timeout: float, target=None, directory: str = DDP_DIR) -> list:
+    """Each rank's results of `target` (`_ddp_rank` unless given), read
+    from `directory`; raises if one failed or hung."""
     import multiprocessing
 
     import torch
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_ddp_rank, args=(r, world)) for r in range(world)]
+    procs = [ctx.Process(target=target or _ddp_rank, args=(r, world)) for r in range(world)]
     t0 = time.time()
     for p in procs:
         p.start()
@@ -2573,14 +2582,14 @@ def _spawn_ranks(world: int, timeout: float) -> list:
             p.join(10)
     errs = []
     for r in range(world):
-        path = os.path.join(DDP_DIR, f"rank{r}.err")
+        path = os.path.join(directory, f"rank{r}.err")
         if os.path.exists(path):
             with open(path) as f:
                 errs.append(f.read())
     if hung or errs or any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"ddp ranks: hung {hung}, exit codes "
+        raise AssertionError(f"{os.path.basename(directory)} ranks: hung {hung}, exit codes "
                              f"{[p.exitcode for p in procs]}\n" + "\n".join(errs))
-    return [torch.load(os.path.join(DDP_DIR, f"rank{r}.pt"), weights_only=False)
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
@@ -2640,7 +2649,16 @@ def ddp_compare(one, nudged, ranks) -> dict:
             "bad": bad}
 
 
-def ddp_phase(caps) -> None:
+def validation_hists(model, cfg, batch, statics) -> dict:
+    """The validate step's IoU histograms of one batch (deterministic
+    algorithms), on the host."""
+    from xmask3d_tpu_torch.engine.validate import make_validate_step
+
+    hists = _deterministic(make_validate_step(model, cfg), batch, statics)
+    return {k: [t.cpu() for t in v] for k, v in hists.items()}
+
+
+def ddp_phase(caps) -> dict:
     """`parallel/mesh.py` on the card, the B15N4 training build, one batch of
     two views (view 0 all novel, view 1 all base: unequal masks, points and
     flagged masks) with fixed point draws. (a) bf16, the configs' type: one
@@ -2654,7 +2672,10 @@ def ddp_phase(caps) -> None:
     `ddp_compare` (the ranks' gradients and statistics bit-equal to each
     other's). (c) The same ranks run the CLI's sharded eval of two
     synthetic scenes (one a rank) and their summed meters give the
-    one-process run's summary exactly."""
+    one-process run's summary exactly. Returns what the `tp` phase holds
+    its ranks to: the fp32 one-process step and its nudged spread, the
+    batch and draws, one validation batch's histograms in fp32, and the
+    bf16 one-process step's ms and peak bytes."""
     import math
     import shutil
     import socket
@@ -2734,6 +2755,10 @@ def ddp_phase(caps) -> None:
                 nudged.append({k: {n: v.cpu() for n, v in out[k].items()}
                                for k in ("metrics", "grads", "buffers")})
                 del out
+            # the `tp` phase's one-process validation batch
+            model.load_state_dict(start, strict=False)
+            val_batch = train_batch(cfg, caps, seed=500, batch=2)
+            one_val = validation_hists(model, cfg, val_batch, statics)
         del model, statics, start
         gc.collect()
         torch.cuda.empty_cache()
@@ -2773,6 +2798,295 @@ def ddp_phase(caps) -> None:
          "eval_equal": all(eval_equal.values()), "bad": bad[:10]})
     if bad:
         raise AssertionError("ddp: " + "; ".join(bad[:10]))
+    return {"one": one, "nudged": nudged, "batch": batch, "draws": draws,
+            "val_batch": val_batch, "val": one_val,
+            "bf16_step_ms": report["bf16_one_process_step_ms"],
+            "bf16_peak_bytes": report["bf16_one_process_peak_bytes"]}
+
+
+# --------------------------------------------------------------------------
+# tp: tensor parallelism of the dense towers (the mesh's model axis)
+# --------------------------------------------------------------------------
+
+TP_DIR = os.path.join(ROOT, "_tp")
+
+
+@contextlib.contextmanager
+def model_collectives(group, record, sync: bool):
+    """Every all-reduce and all-gather over `group` appended to `record` as
+    (name, ms, bytes of the rank's input); ms only with `sync` (the card
+    synchronised around each, which slows the step), else 0."""
+    import torch
+    import torch.distributed as dist
+
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            if kw.get("group") is not group:
+                return fn(*args, **kw)
+            t = args[0] if name == "all_reduce" else args[1]
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            record.append((name, (time.time() - t0) * 1e3 if sync else 0.0,
+                           t.numel() * t.element_size()))
+            return out
+        return call
+
+    for n, fn in real.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def _param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params)
+
+
+def tp_k2_check(table, calls) -> dict:
+    """Kernel K2's calls of a tensor-parallel step (the rank's heads) held
+    against its plain version (bf16 as recorded, then fp32), then per shape
+    (heads, queries, keys, head dim) its launches, ms, the plain version's,
+    `scaled_dot_product_attention`'s, the bound and the device ms of K2 and
+    of the library call."""
+    import torch.nn.functional as F
+
+    k = table["flash_attention"]
+    errs = {}
+    for dtype in ("bf16", "fp32"):
+        cd = calls if dtype == "bf16" else [as_fp32(c) for c in calls]
+        err, worst, at, _, outs = max_err(k["fn"], k["plain"], cd, TOL[dtype])
+        if not worst <= 1.0:
+            raise AssertionError(f"K2 at the rank's heads ({dtype}): call {at} is {worst}x its "
+                                 "tolerance")
+        errs[dtype] = err
+        if dtype == "bf16":
+            outs_bf16 = outs
+        del outs
+    groups = {}
+    for c, o in zip(calls, outs_bf16):
+        groups.setdefault((k["shape"](c), k["variant"](c)), []).append((c, o))
+    reps = 5
+    by_shape = []
+    for (shape, var), members in groups.items():
+        cs = [c for c, _ in members]
+        g_bound, g_by = bound("flash_attention", cs, [o for _, o in members])
+        by_shape.append({"shape": list(shape), "variant": var, "launches": len(cs),
+                         "ms": time_calls(k["fn"], cs, reps),
+                         "plain_ms": time_calls(k["plain"], cs, 2),
+                         "library_ms": time_calls(F.scaled_dot_product_attention, cs, reps),
+                         "bound_ms": g_bound, "bound_by": g_by})
+    del outs_bf16
+    sets = [[c for c, _ in members] for members in groups.values()]
+    ms = device_ms([(k["fn"], g) for g in sets]
+                   + [(F.scaled_dot_product_attention, g) for g in sets], reps)
+    for i, row in enumerate(by_shape):
+        row["device_ms"], row["library_device_ms"] = ms[i], ms[len(sets) + i]
+    return {"calls": len(calls), "max_abs_err": errs["bf16"], "max_abs_err_fp32": errs["fp32"],
+            "by_shape": by_shape}
+
+
+def _tp_rank(rank: int, world: int) -> None:
+    """A rank of the `tp` phase (a spawned process): gloo on the one card, a
+    (1, world) mesh, the B15N4 training build from the parent's seed (the
+    same weights on every rank, checked by their sum), sharded by
+    `shard_params`. (b) bf16, the default mode: a first step records K2's
+    calls, a second is timed with the model group's collectives counted, a
+    third times each collective (the card synchronised around it); the
+    kernels' launches in the timed step; parameter, master and peak bytes
+    against the whole model's. (c) fp32: the validate step's histograms of
+    the parent's validation batch. (a) fp32: one step under deterministic
+    algorithms, the gradients of sharded masters made whole. (d) K2's
+    recorded calls against its plain version at the rank's head count,
+    timed per shape (`tp_k2_check`, last: the profiler slows later
+    launches). Writes TP_DIR/rank<r>.pt, a traceback to rank<r>.err on
+    failure."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+        from xmask3d_tpu_torch.parallel.mesh import create_mesh, init_distributed
+        from xmask3d_tpu_torch.parallel.tensor import (
+            gather_tensor, shard_params, sharded_tensors)
+
+        dev = init_distributed(init_method=f"file://{os.path.join(TP_DIR, 'rendezvous')}",
+                               backend="gloo")
+        mesh = create_mesh(1, world)
+        data = torch.load(os.path.join(TP_DIR, "inputs.pt"), map_location=dev,
+                          weights_only=False)
+        batch, draws = data["batch"], data["draws"]
+        table = kernel_table()
+        out = {"device": str(dev), "mesh": mesh.shape}
+
+        # (b) bf16
+        cfg = _ddp_cfg("bfloat16")
+        t0 = time.time()
+        model = build_train_model(cfg, seed=0, device=dev)
+        mc = model.cfg
+        labels = label_tree(model)
+        whole = {"param_bytes": _param_bytes(model.parameters()),
+                 "master_bytes": 4 * sum(p.numel() for n, p in model.named_parameters()
+                                         if labels[n] != "frozen")}
+        shard_params(model, mesh)
+        statics = build_statics(model, cfg, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        calls = {"flash_attention": []}
+        torch.cuda.reset_peak_memory_stats()
+        with recording(calls):
+            ddp_step(model, statics, batch, draws, cfg)
+        expected = expected_train_launches(mc)
+        counted, variants = [], {}
+        reset_launches()
+        with counting_variants(table, variants), \
+                model_collectives(mesh.model_group, counted, sync=False):
+            step = ddp_step(model, statics, batch, draws, cfg)
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+        timed = []
+        with model_collectives(mesh.model_group, timed, sync=True):
+            synced = ddp_step(model, statics, batch, draws, cfg)
+        trainable = [p for n, p in model.named_parameters() if labels[n] != "frozen"]
+        out["bf16"] = {
+            "setup_s": setup_s, "step_ms": step["step_ms"], "synced_step_ms": synced["step_ms"],
+            "metrics": step["metrics"], "launches": counts, "expected": expected,
+            "variants": variants, "collectives": len(counted),
+            "collective_bytes": sum(b for _, _, b in counted),
+            "by_collective": {n: sum(1 for c in counted if c[0] == n)
+                              for n in ("all_reduce", "all_gather")},
+            "collective_ms": sum(ms for _, ms, _ in timed), "collectives_synced": len(timed),
+            "param_bytes": _param_bytes(model.parameters()),
+            "master_bytes": 4 * sum(p.numel() for p in trainable),
+            "whole": whole, "peak_bytes": peak, "sharded_tensors": len(sharded_tensors(model))}
+        del model, statics, step, synced
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) and (a) fp32
+        cfg = _ddp_cfg("float32")
+        model = build_train_model(cfg, seed=0, device=dev)
+        weights_sum = _weights_sum(model)
+        shard_params(model, mesh)
+        statics = build_statics(model, cfg, device=dev)
+        out["val"] = validation_hists(model, cfg, data["val_batch"], statics)
+        step = _deterministic(ddp_step, model, statics, batch, draws, cfg)
+        shards = sharded_tensors(model)
+        step["grads"] = {k: (gather_tensor(v, *shards[k]) if k in shards else v).cpu()
+                         for k, v in step["grads"].items()}
+        step["buffers"] = {k: v.cpu() for k, v in step["buffers"].items()}
+        step["weights_sum"] = weights_sum
+        out["fp32"] = step
+        del model, statics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) K2 at the rank's heads
+        out["k2"] = tp_k2_check(table, calls["flash_attention"])
+        torch.save(out, os.path.join(TP_DIR, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(TP_DIR, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_phase(ref, table, rows) -> None:
+    """Tensor parallelism on the card: two ranks spawned over gloo (NCCL
+    refuses two ranks on one card), a (1, 2) mesh, the B15N4 training build
+    at full width on the `ddp` phase's batch of two views (`_tp_rank`).
+    (a) The fp32 step held to the one-process step by `ddp_compare` (the
+    whole masters' gradients, the statistics and the losses; the two ranks
+    bit-equal). (b) The bf16 step's ms a rank, the model group's
+    collectives (count, bytes, ms), parameter, master and peak bytes a rank
+    against the whole model's; the kernels' launches in the timed step as
+    one process's (`expected_train_launches`), on their fast variants. (c)
+    One validation batch's histograms equal to one process's. (d) Every K2 call of the step
+    at the rank's head count against its plain version; its per-shape times
+    join K2's row of the `kernels` line (`tp_by_shape`). Gloo moves every
+    collective through the host, so the step ms measure that, not NVLink."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    try:
+        torch.save({"batch": ref["batch"], "draws": ref["draws"], "val_batch": ref["val_batch"]},
+                   os.path.join(TP_DIR, "inputs.pt"))
+        t0 = time.time()
+        ranks = _spawn_ranks(2, 900.0, target=_tp_rank, directory=TP_DIR)
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    seconds = time.time() - t0
+
+    cmp = ddp_compare(ref["one"], ref["nudged"], [r["fp32"] for r in ranks])
+    bad = cmp.pop("bad")
+    b0 = ranks[0]["bf16"]
+    for r in ranks:
+        b = r["bf16"]
+        for name, n in b["expected"].items():
+            if b["launches"][name] != n:
+                bad.append(f"{name}: {b['launches'][name]} launches in the timed step, "
+                           f"expected {n}")
+        try:
+            check_variants(b["variants"], b["expected"], 1)
+        except AssertionError as e:
+            bad.append(str(e))
+    flips, points = 0, int(ref["val_batch"]["point_valid"].sum())
+    for r in ranks:
+        for k, want in ref["val"].items():
+            flips = max(flips, sum(int((g - w).abs().sum()) for g, w in zip(r["val"][k], want)))
+    if flips:
+        bad.append(f"validation histograms differ from one process's by {flips} counts over "
+                   f"{points} points")
+    if not all(torch.equal(ranks[0]["val"][k][i], ranks[1]["val"][k][i])
+               for k in ranks[0]["val"] for i in range(3)):
+        bad.append("the model group's validation histograms differ")
+    k2 = [r["k2"] for r in ranks]
+    heads = sorted({s["shape"][0] for s in k2[0]["by_shape"]})
+    log({"phase": "tp", "backend": "gloo", "mesh": ranks[0]["mesh"], "batch": 2,
+         "seconds": seconds, "device": [r["device"] for r in ranks],
+         "bf16_setup_s": [r["bf16"]["setup_s"] for r in ranks],
+         "bf16_step_ms": [r["bf16"]["step_ms"] for r in ranks],
+         "bf16_synced_step_ms": [r["bf16"]["synced_step_ms"] for r in ranks],
+         "bf16_one_process_step_ms": ref["bf16_step_ms"],
+         "collectives_a_step": b0["collectives"], "by_collective": b0["by_collective"],
+         "collective_bytes_a_step": b0["collective_bytes"],
+         "collective_ms_a_step": [r["bf16"]["collective_ms"] for r in ranks],
+         "param_bytes_a_rank": [r["bf16"]["param_bytes"] for r in ranks],
+         "param_bytes_whole": b0["whole"]["param_bytes"],
+         "master_bytes_a_rank": [r["bf16"]["master_bytes"] for r in ranks],
+         "master_bytes_whole": b0["whole"]["master_bytes"],
+         "bf16_peak_bytes_a_rank": [r["bf16"]["peak_bytes"] for r in ranks],
+         "bf16_one_process_peak_bytes": ref["bf16_peak_bytes"],
+         "sharded_tensors": b0["sharded_tensors"], "launches": b0["launches"],
+         "fp32_step_ms": [r["fp32"]["step_ms"] for r in ranks], **cmp,
+         "val_points": points, "val_counts_apart": flips,
+         "k2_heads": heads, "k2_calls": k2[0]["calls"],
+         "k2_max_abs_err": [k["max_abs_err"] for k in k2],
+         "k2_max_abs_err_fp32": [k["max_abs_err_fp32"] for k in k2],
+         "k2_by_shape": k2[0]["by_shape"], "bad": bad[:10]})
+    if bad:
+        raise AssertionError("tp: " + "; ".join(bad[:10]))
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["tp_by_shape"] = k2[0]["by_shape"]
 
 
 def main() -> int:
@@ -2928,7 +3242,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_phase(cfg, caps, table)
-    ddp_phase(caps)
+    tp_phase(ddp_phase(caps), table, rows)
 
     log(reference_check(CONFIG))
     log(reference_check(CONFIG, fused_gn=True))

@@ -83,24 +83,26 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_the_import_guards_cover_the_parallel_and_sampling_modules():
-    """The scans above walk the whole package: the data-parallel layer and
-    the diffusion sampling modules are among what they import."""
+    """The scans above walk the whole package: the data- and
+    tensor-parallel layers and the diffusion sampling modules are among
+    what they import."""
     mods = set(_port_modules())
-    for m in ("parallel.mesh", "models.diffusion", "models.txt2img", "models.resample"):
+    for m in ("parallel.mesh", "parallel.tensor", "models.diffusion", "models.txt2img",
+              "models.resample"):
         assert f"xmask3d_tpu_torch.{m}" in mods, m
 
 
 def test_no_environment_switch_reaches_the_kernel_wrappers():
     """A wrapper takes its plain version for CPU tensors only: the kernel
-    wrappers and the data-parallel layer read no environment variable but
+    wrappers and the parallel layers read no environment variable but
     the toolkit's location and torchrun's rank variables, so nothing
     outside the call can send a CUDA tensor to the plain version (the env
     switches the port has, such as XMASK3D_FUSED_GN, choose modules, not
     routes of a kernel)."""
     allowed = {"CUDA_HOME", "RANK", "WORLD_SIZE", "LOCAL_RANK"}
     files = glob.glob(os.path.join(PORT, "ops", "*.py"))
-    files.append(os.path.join(PORT, "parallel", "mesh.py"))
-    assert len(files) >= 9
+    files += glob.glob(os.path.join(PORT, "parallel", "*.py"))
+    assert len(files) >= 10
     read, bad = set(), []
     for path in files:
         tree = ast.parse(open(path).read(), path)

@@ -430,11 +430,12 @@ def test_trainer_logs_the_config_keys_it_does_not_honour(tmp_path):
     """B15N4 sets `donate_state`, which the JAX trainer obeys and the
     port's does not: the trainer logs one warning, naming what it does
     instead (no ROADMAP item: its in-place update leaves nothing to port);
-    a config without it logs nothing. B15N4's `mesh_shape` ({data: -1,
-    model: 1}) is what the process group gives, so it is not logged; a
-    model axis above 1 (tensor parallelism, ROADMAP A 6) or a data axis
-    other than the world size is. `workers` and `remat_backbone`, which
-    the trainer honours, are not among them."""
+    a config without it logs nothing. `mesh_shape` is honoured, its model
+    axis too (tensor parallelism), so no mesh is logged; one that the world
+    cannot give (a model axis of 2 or a data axis of 4 in a one-process
+    world) makes the trainer raise, as the JAX `create_mesh` does.
+    `workers` and `remat_backbone`, which the trainer honours, are not
+    among them."""
     import logging
 
     lines = []
@@ -462,6 +463,8 @@ def test_trainer_logs_the_config_keys_it_does_not_honour(tmp_path):
         trainer.logger.removeHandler(handler)
     assert [ln.split()[2] for ln in got] == ["donate_state"]
     assert "no ROADMAP item" in got[0], got[0]
-    assert [ln.split()[2] for ln in mesh_lines] == ["mesh_shape", "mesh_shape"]
-    assert all("ROADMAP A 6" in ln for ln in mesh_lines), mesh_lines
+    assert mesh_lines == []
+    for axis, n, why in (("model", 2, "not divisible"), ("data", 4, "!=")):
+        with pytest.raises(ValueError, match=why):
+            trainer.main(_tiny_argv(tmp_path / "bad", f"mesh_shape.{axis}", n), device="cpu")
     assert _cfg(load_config)["remat_backbone"] is True

@@ -1,11 +1,12 @@
-"""Rank processes for `tests/test_torch_distributed.py`.
+"""Rank processes for `tests/test_torch_distributed.py` and
+`tests/test_torch_tensor_parallel.py`.
 
-`spawn_ranks(job, tmp, args)` starts two processes (the `spawn` method, one
-torch thread each) that join a gloo group through a file under `tmp`, run
-`JOBS[job](tmp, *args)` on their rank and save its result as
-`tmp/<job>_<rank>.pt` (a traceback as `.err` on failure). It fails if a rank
-fails or has not ended within the timeout. This module imports no JAX, so
-the ranks start quickly.
+`spawn_ranks(job, tmp, args, world)` starts `world` processes (two by
+default; the `spawn` method, one torch thread each) that join a gloo group
+through a file under `tmp`, run `JOBS[job](tmp, *args)` on their rank and
+save its result as `tmp/<job>_<rank>.pt` (a traceback as `.err` on
+failure). It fails if a rank fails or has not ended within the timeout.
+This module imports no JAX, so the ranks start quickly.
 """
 
 from __future__ import annotations
@@ -122,7 +123,133 @@ def trainer_job(tmp, argv):
     return trainer.main(list(argv) + ["--save_path", save], device="cpu")
 
 
-JOBS = {"batchnorm": batchnorm_job, "train_step": train_step_job, "eval": eval_job,
+def load_jax_sharded(model, variables):
+    """Fill a sharded model straight from the JAX `{params, batch_stats}`
+    tree (numpy): each leaf through the weight bridge's rule, then this
+    rank's slice of it where the model holds one (`shard_tensor`, by the
+    tensor-parallel rules' layout)."""
+    import numpy as np
+
+    from xmask3d_tpu_torch.checkpoint.from_jax import _flatten, bridge_tensors
+    from xmask3d_tpu_torch.parallel.tensor import shard_tensor, sharded_tensors
+
+    flat = {col: _flatten(variables.get(col, {})) for col in ("params", "batch_stats")}
+    names = {id(m): n for n, m in model.named_modules()}
+    shards = sharded_tensors(model)
+    with torch.no_grad():
+        for col, path, mod, name, t, fn in bridge_tensors(model):
+            arr = flat[col].pop(path)
+            full = torch.from_numpy(np.array(fn(arr) if fn is not None else arr))
+            key = f"{names[id(mod)]}.{name}" if names[id(mod)] else name
+            t.copy_(shard_tensor(full, *shards[key]) if key in shards else full)
+    left = [p for col in flat.values() for p in col]
+    if left:
+        raise KeyError(f"JAX leaves the model did not take: {left[:8]}")
+
+
+TP_OUTPUTS = ("pred_logits", "fused_pred_feature", "2d_pred_feature", "pure3d_pred_feature",
+              "mask_embed_clip", "binary_sig", "pred_scores", "pred_masks", "final_mask_3d",
+              "pred_labels", "final_mask_valid", "binary_pred", "covered")
+
+
+def tp_forward(tmp, over, mesh):
+    """The tiny eval model's forward on `mesh`, the sharded model filled
+    straight from the saved JAX variables (`load_jax_sharded`)."""
+    from xmask3d_tpu_torch.engine.builder import build_model
+    from xmask3d_tpu_torch.parallel.tensor import shard_params
+
+    d = torch.load(os.path.join(tmp, "tp_fwd_in.pt"), weights_only=False)
+    model = shard_params(build_model(_tiny_cfg(over), tiny=True, device="cpu"), mesh)
+    load_jax_sharded(model, d["variables"])
+    with torch.no_grad():
+        out = model.eval_forward(d["batch"], d["statics"])
+    return {k: out[k] for k in TP_OUTPUTS}
+
+
+def _first_moments(state, whole):
+    """{parameter name: AdamW's first moment}, each sharded one made whole
+    (`whole`) or left as this rank's slice."""
+    from xmask3d_tpu_torch.parallel.tensor import gather_tensor, sharded_tensors
+
+    shards = sharded_tensors(state.model)
+    adam = state.optimizer.adamw.state
+    name = {id(p): n for n, p in state.model.named_parameters()}
+    out = {}
+    for pairs in state.optimizer.pairs.values():
+        for p, m in pairs:
+            n = name[id(p)]
+            mu = adam[m]["exp_avg"]
+            out[n] = gather_tensor(mu, *shards[n]) if whole and n in shards else mu.clone()
+    return out
+
+
+def tp_step_job(tmp, over, data_axis, model_axis, round_trip):
+    """One train step of the tiny model on a (data_axis, model_axis) mesh:
+    every rank builds the model from its own seed, takes rank 0's weights,
+    keeps its slices and steps on its data rank's rows of the saved batch
+    and draws. Returns the metrics, the first moments made whole and as
+    held (`local`), the buffers and the sharded tensors' layouts. With
+    `round_trip`: the eval forward (`tp_forward`) and
+    `gather_params(shard_params(m))` against the state dict first; after
+    the step, a checkpoint saved under this mesh (rank 0
+    writes tmp/ckpt_tp) with the whole masters and moments, then the
+    one-process checkpoint tmp/ckpt_one restored (the slices it gives) and
+    one more step from it on the `draws2`."""
+    from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
+    from xmask3d_tpu_torch.engine.builder import build_train_model
+    from xmask3d_tpu_torch.engine.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+    from xmask3d_tpu_torch.parallel.mesh import broadcast_module, create_mesh, rows_of_rank
+    from xmask3d_tpu_torch.parallel.tensor import (
+        gather_params, gather_tensor, shard_params, sharded_tensors)
+
+    d = torch.load(os.path.join(tmp, "tp_step_in.pt"), weights_only=False)
+    cfg = _tiny_cfg(over)
+    mesh = create_mesh(data_axis, model_axis)
+    model = build_train_model(cfg, tiny=True, seed=int(os.environ["RANK"]) + 1, device="cpu")
+    if int(os.environ["RANK"]) == 0:
+        model.load_state_dict(d["state"])
+    broadcast_module(model)
+    out = {"mesh": mesh.shape, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank}
+    if round_trip:
+        out["forward"] = tp_forward(tmp, over, mesh)
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+        gathered = gather_params(shard_params(model, mesh)).state_dict()
+        out["round_trip_equal"] = gathered.keys() == whole.keys() and all(
+            torch.equal(v, whole[k]) and v.dtype == whole[k].dtype for k, v in gathered.items())
+    shard_params(model, mesh)
+    out["sharded"] = sharded_tensors(model)
+    state = create_train_state(model, make_optimizer(model, cfg.lr_3d, cfg.lr_others,
+                                                     d["total_steps"]))
+    step = make_train_step(dict(cfg.loss_weight))
+    batch = rows_of_rank(d["batch"])
+    out["metrics"] = step(state, batch, d["statics"], 1.0, draws=rows_of_rank(d["draws"], dim=1))
+    out["mu"] = _first_moments(state, whole=True)
+    out["local"] = _first_moments(state, whole=False)
+    out["buffers"] = {k: v.clone() for k, v in model.named_buffers()}
+    if round_trip:
+        Checkpointer(os.path.join(tmp, "ckpt_tp")).save(1, state, best_iou=0.25)
+        shards = sharded_tensors(model)
+        name = {id(p): n for n, p in model.named_parameters()}
+        adam = state.optimizer.adamw.state
+        masters = {name[id(p)]: m for pairs in state.optimizer.pairs.values() for p, m in pairs}
+        out["saved"] = {n: [gather_tensor(t, *shards[n]) if n in shards else t.detach().clone()
+                            for t in (m, adam[m]["exp_avg"], adam[m]["exp_avg_sq"])]
+                        for n, m in masters.items()}
+        state, _ = Checkpointer(os.path.join(tmp, "ckpt_one")).restore(state)
+        adam = state.optimizer.adamw.state  # restored as new tensors
+        out["restored"] = {n: [t.detach().clone() for t in (m, adam[m]["exp_avg"],
+                                                             adam[m]["exp_avg_sq"])]
+                           for n, m in masters.items()}
+        out["restored_step"] = state.step
+        out["metrics2"] = step(state, batch, d["statics"], 1.0,
+                               draws=rows_of_rank(d["draws2"], dim=1))
+        out["mu2"] = _first_moments(state, whole=True)
+    return out
+
+
+JOBS = {"tp_step": tp_step_job,
+        "batchnorm": batchnorm_job, "train_step": train_step_job, "eval": eval_job,
         "validation": validation_job, "trainer": trainer_job}
 
 

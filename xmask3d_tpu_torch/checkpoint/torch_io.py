@@ -6,6 +6,13 @@ the BatchNorm running statistics, the optimizer state and {step, best_iou};
 the frozen parameters are not saved and keep the values they have when a
 checkpoint is restored. One file a step, `step_<step>.pt`, at most
 `max_to_keep` of them.
+
+Under a model axis (`parallel/tensor.py`) `save` gathers every sharded
+master and its AdamW moments into whole tensors (a collective of the first
+data replica's model group; the other ranks return at once) and rank 0
+writes them, so a checkpoint is the same file whatever the mesh; `restore`
+keeps this rank's slice of each, by the current mesh, and
+`restore_for_serving` loads a file into a whole model with no group.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 from xmask3d_tpu_torch.engine.builder import label_tree
+from xmask3d_tpu_torch.parallel.mesh import data_rank, rank
+from xmask3d_tpu_torch.parallel.tensor import gather_tensor, shard_tensor, sharded_tensors
 
 _FILE = re.compile(r"step_(\d+)\.pt$")
 
@@ -28,6 +37,26 @@ def _trainable(state):
     masters = {id(p): m for pairs in state.optimizer.pairs.values() for p, m in pairs}
     return {name: (params[name], masters[id(params[name])])
             for name, lab in labels.items() if lab != "frozen"}
+
+
+def _moment_names(state):
+    """The dotted parameter name of each index of the optimizer's state
+    dict (its masters in group order)."""
+    name = {id(p): n for n, p in state.model.named_parameters()}
+    return [name[id(p)] for pairs in state.optimizer.pairs.values() for p, _ in pairs]
+
+
+def _moments(opt, state, shards, layout):
+    """An optimizer state dict with each sharded master's moments passed
+    through `layout(tensor, dim, packs)`: made whole (`gather_tensor`) or
+    cut to this rank's slice (`shard_tensor`)."""
+    if not shards:
+        return opt
+    names = _moment_names(state)
+    opt["state"] = {i: {k: layout(v, *shards[names[i]])
+                        if names[i] in shards and k.startswith("exp_avg") else v
+                        for k, v in st.items()} for i, st in opt["state"].items()}
+    return opt
 
 
 class Checkpointer:
@@ -48,12 +77,23 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{step}.pt")
 
     def save(self, step: int, state, best_iou: float = 0.0, extra: Optional[dict] = None) -> None:
+        """Write the checkpoint of `step` (rank 0; under a model axis every
+        rank calls it, for the gathers)."""
+        if data_rank() != 0:
+            return
+        shards = sharded_tensors(state.model)
+
+        def whole(name, m):
+            return gather_tensor(m, *shards[name]) if name in shards else m.detach()
+
         payload = {
-            "trainable": {n: m.detach().cpu() for n, (_, m) in _trainable(state).items()},
+            "trainable": {n: whole(n, m).cpu() for n, (_, m) in _trainable(state).items()},
             "batch_stats": {n: b.detach().cpu() for n, b in state.model.named_buffers()},
-            "opt_state": state.optimizer.state_dict(),
+            "opt_state": _moments(state.optimizer.state_dict(), state, shards, gather_tensor),
             "meta": {"step": int(step), "best_iou": float(best_iou), **(extra or {})},
         }
+        if rank() != 0:
+            return
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
@@ -74,15 +114,21 @@ class Checkpointer:
         trainable = _trainable(state)
         if set(payload["trainable"]) != set(trainable):
             raise KeyError("checkpoint and model have different trainable parameters")
+        shards = sharded_tensors(state.model)
+
+        def mine(name, full):
+            return shard_tensor(full, *shards[name]) if name in shards else full
+
         with torch.no_grad():
             for name, (p, m) in trainable.items():
-                m.copy_(payload["trainable"][name])
+                m.copy_(mine(name, payload["trainable"][name]))
                 if m is not p:
                     p.copy_(m)
             buffers = dict(state.model.named_buffers())
             for name, value in payload["batch_stats"].items():
                 buffers[name].copy_(value)
-        state.optimizer.load_state_dict(payload["opt_state"])
+        state.optimizer.load_state_dict(_moments(payload["opt_state"], state, shards,
+                                                 shard_tensor))
         state.step = int(payload["meta"]["step"])
         return state, payload["meta"]
 

@@ -11,13 +11,17 @@ every `save_freq` epochs, and `--resume`.
         batch_size 2 epochs 1 steps_per_epoch 3
     torchrun --nproc_per_node N -m xmask3d_tpu_torch.engine.train ...
 
-Under torchrun it trains data-parallel, one process a GPU
-(`parallel/mesh.py`): `batch_size` is the global batch, as under the JAX
-package's data mesh, and each rank builds the batch one process would
-build and keeps its rows of it, train and validation alike, so the world
-size does not change the math (up to summation order). Every rank starts
-from rank 0's weights and reads `--resume`; only rank 0 logs and writes
-checkpoints.
+Under torchrun it trains on the config's `mesh_shape` {data, model}, one
+process a GPU (`parallel/mesh.py`; a shape the world cannot give raises,
+as the JAX `create_mesh` does). On the data axis `batch_size` is the
+global batch, as under the JAX package's data mesh, and each rank builds
+the batch one process would build and keeps its rows of it, train and
+validation alike, so the world size does not change the math (up to
+summation order). On the model axis the dense towers are tensor-parallel
+(`parallel/tensor.py`): every rank builds the whole model from the same
+seed, takes rank 0's weights and keeps its slice of the sharded layers.
+Every rank reads `--resume`; only rank 0 logs and writes checkpoints,
+which hold whole tensors whatever the mesh.
 
 Runs on the GPU; `main(argv, device="cpu")` runs the plain versions of the
 kernels on the CPU (with `--tiny` for a model of that size). Synthetic
@@ -49,7 +53,9 @@ from xmask3d_tpu_torch.engine.builder import (
 from xmask3d_tpu_torch.engine.train_step import create_train_state, make_optimizer, make_train_step
 from xmask3d_tpu_torch.engine.validate import make_validate_step, run_validation
 from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
-from xmask3d_tpu_torch.parallel.mesh import broadcast_module, init_distributed, rank, world_size
+from xmask3d_tpu_torch.parallel.mesh import (
+    broadcast_module, create_mesh, data_size, init_distributed, rank, world_size)
+from xmask3d_tpu_torch.parallel.tensor import shard_params
 from xmask3d_tpu_torch.utils.logging import MetricsWriter, get_logger
 
 logger = get_logger()
@@ -63,19 +69,10 @@ UNHONOURED_KEYS = {
 
 
 def log_unhonoured_keys(cfg: Config) -> None:
-    """One warning for each key of UNHONOURED_KEYS the config sets, and for
-    a `mesh_shape` the process group does not give: a `model` axis above 1
-    (tensor parallelism, ROADMAP A 6) or a `data` axis other than -1 or the
-    world size."""
+    """One warning for each key of UNHONOURED_KEYS the config sets."""
     for key, why in UNHONOURED_KEYS.items():
         if key in cfg:
             logger.warning(f"config key {key} = {cfg[key]!r} is not honoured: {why}")
-    mesh = cfg.get("mesh_shape")
-    if mesh is not None and (mesh.get("model", 1) != 1
-                             or mesh.get("data", -1) not in (-1, world_size())):
-        logger.warning(f"config key mesh_shape = {mesh!r} is not honoured: the data axis is "
-                       f"the world size ({world_size()}), and a model axis is tensor "
-                       "parallelism, ROADMAP A 6")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -179,8 +176,10 @@ def main(argv=None, device=None):
     dev = init_distributed(device)
     cfg = load_config(args.config, args.opts)
     caps = capacities_from_cfg(cfg)
-    if cfg.batch_size % world_size():
-        raise ValueError(f"batch_size {cfg.batch_size} does not split over {world_size()} ranks")
+    shape = cfg.get("mesh_shape") or {}
+    mesh = create_mesh(shape.get("data", -1), shape.get("model", 1))
+    if cfg.batch_size % data_size():
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {data_size()} ranks")
     main_rank = rank() == 0
     log_unhonoured_keys(cfg)
     np.random.seed(cfg.manual_seed)
@@ -190,9 +189,10 @@ def main(argv=None, device=None):
                                         allow_hash_tokenizer=args.allow_hash_tokenizer,
                                         device=dev)
     if main_rank:
-        logger.info(f"=> creating model ... ({world_size()} ranks)")
+        logger.info(f"=> creating model ... ({world_size()} ranks, mesh {mesh.shape})")
     model = build_train_model(cfg, tiny=args.tiny, seed=cfg.manual_seed, device=dev)
     broadcast_module(model)
+    shard_params(model, mesh)
     statics = build_statics(model, cfg, device=dev)
 
     # epoch length from the dataset (its `loop` included); synthetic runs
@@ -256,9 +256,10 @@ def main(argv=None, device=None):
             if main_rank:
                 logger.info(f"val epoch {epoch}: {summary}")
                 writer.add_scalars(summary, state.step, prefix="val/")
-        if main_rank and (epoch + 1) % cfg.save_freq == 0:
-            ckpt.save(state.step, state, best_iou=best_iou)
-            logger.info(f"saved checkpoint at step {state.step} (best_iou {best_iou:.4f})")
+        if (epoch + 1) % cfg.save_freq == 0:
+            ckpt.save(state.step, state, best_iou=best_iou)  # rank 0 writes
+            if main_rank:
+                logger.info(f"saved checkpoint at step {state.step} (best_iou {best_iou:.4f})")
     if main_rank:
         writer.close()
     return {"step": state.step, "best_iou": best_iou, "last_metrics": _host(metrics),

@@ -11,10 +11,14 @@ frozen group has no gradients and no optimizer state.
 
 Under a process group each rank's losses are its share of the global
 batch's (`losses/criterion.py`), so the masters' fp32 gradients are summed
-over the ranks (one bucketed all-reduce) before the gradient norms and the
-update, which then see the global gradient on every rank, as under the JAX
-package's data mesh. The step's point draws are made for the global batch
-from the generator every rank shares, and each rank takes its rows.
+over the data axis's ranks (one bucketed all-reduce) before the gradient
+norms and the update, which then see the global gradient on every rank, as
+under the JAX package's data mesh. The step's point draws are made for the
+global batch from the generator every rank shares, and each rank takes its
+rows. Under a model axis (`parallel/tensor.py`) a sharded parameter's
+master and its AdamW moments are the rank's slice, its gradient the
+slice's; the gradient norms add the model group's sums of squares of the
+sharded masters, so each is the norm of the whole gradient.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from xmask3d_tpu_torch.engine.builder import label_tree
 from xmask3d_tpu_torch.ops.point_sample import point_draws
-from xmask3d_tpu_torch.parallel.mesh import all_reduce_sum_, rows_of_rank, world_size
+from xmask3d_tpu_torch.parallel.mesh import (
+    all_reduce_sum_, current_mesh, data_size, model_size, rows_of_rank)
+from xmask3d_tpu_torch.parallel.tensor import sharded_tensors
 from xmask3d_tpu_torch.utils.lr_schedule import cosine_lr, poly_lr
 
 GROUPS = ("3d", "others")
@@ -40,12 +47,16 @@ class MasterAdamW:
     def __init__(self, model: nn.Module, base_lrs: Dict[str, float],
                  schedules: Dict[str, Callable[[int], float]], weight_decay: float = 0.01):
         labels = label_tree(model)
+        shards = sharded_tensors(model)
         self.pairs: Dict[str, List[Tuple[nn.Parameter, torch.Tensor]]] = {g: [] for g in GROUPS}
+        self.sharded = set()  # ids of the masters of sharded parameters
         for name, p in model.named_parameters():
             if labels[name] == "frozen":
                 continue
             master = p if p.dtype == torch.float32 else p.detach().float().requires_grad_()
             self.pairs[labels[name]].append((p, master))
+            if name in shards:
+                self.sharded.add(id(master))
         self.schedules = [schedules[g] for g in GROUPS]
         self._reduced = False
         self.adamw = torch.optim.AdamW(
@@ -73,10 +84,25 @@ class MasterAdamW:
 
     def grad_norms(self) -> Dict[str, torch.Tensor]:
         """Each group's gradient norm (fp32), before `step`: the global
-        gradient's under a process group."""
+        gradient's under a process group, the whole (unsharded) gradient's
+        under a model axis."""
         self.reduce_gradients()
-        return {g: torch.nn.utils.get_total_norm([m.grad for _, m in pairs])
-                for g, pairs in self.pairs.items()}
+        if model_size() == 1:
+            return {g: torch.nn.utils.get_total_norm([m.grad for _, m in pairs])
+                    for g, pairs in self.pairs.items()}
+        device = next(m.device for pairs in self.pairs.values() for _, m in pairs)
+        norms = {}
+        for g, pairs in self.pairs.items():
+            sq = []
+            for sharded in (False, True):
+                grads = [m.grad for _, m in pairs if (id(m) in self.sharded) == sharded]
+                # a group without such masters (the 3d group has no sharded
+                # one) adds a zero on the masters' device, where NCCL reduces
+                sq.append(torch.nn.utils.get_total_norm(grads).square() if grads
+                          else torch.zeros((), device=device))
+            dist.all_reduce(sq[1], group=current_mesh().model_group)
+            norms[g] = (sq[0] + sq[1]).sqrt()
+        return norms
 
     def step(self, step: int) -> None:
         """One AdamW update at learning rates schedule(step) from the
@@ -174,7 +200,7 @@ def make_train_step(loss_weight: Dict[str, float]):
         if draws is None:
             b, t = batch["target_labels"].shape
             draws = rows_of_rank(point_draws(
-                state.generator, c.dec_layers + 1, b * world_size(), t, c.num_points,
+                state.generator, c.dec_layers + 1, b * data_size(), t, c.num_points,
                 c.oversample_ratio, c.importance_sample_ratio, device=batch["img"].device),
                 dim=1)
         losses, _ = model(batch, statics, train=True, draws=draws)

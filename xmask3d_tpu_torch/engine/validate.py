@@ -3,9 +3,10 @@
 Counterpart of `xmask3d_tpu/engine/validate.py`: the eval forward of each
 validation batch, the ensemble and base/novel routing, the 2D branch
 without the KD-tree fill (each point its own match), and per-stream IoU
-histograms summed on the host (and, under a process group, over the ranks,
-each of which validates its rows of every batch) into the nine-number
-summary ({fused, 2d, 3d} x {mIoU_base, mIoU_novel, hIoU}). The trainer
+histograms summed on the host (and, under a process group, over the data
+axis's ranks, each of which validates its rows of every batch; the ranks
+of a model group run the sharded model together and agree) into the
+nine-number summary ({fused, 2d, 3d} x {mIoU_base, mIoU_novel, hIoU}). The trainer
 builds the step once and reuses it every validation pass.
 """
 

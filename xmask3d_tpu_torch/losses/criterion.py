@@ -8,9 +8,10 @@ mask loss takes its random coordinates as inputs (`ops/point_sample.py`).
 
 Every loss is a sum over the batch divided by a count. Under a process
 group the count is the global batch's (`parallel/mesh.py` `global_sum`,
-detached) and each rank returns its own sum over it, so the ranks' losses
-add up to the one-process loss of the global batch, as under the JAX
-package's data mesh.
+detached, over the data axis) and each rank returns its own sum over it,
+so a data group's losses add up to the one-process loss of the global
+batch, as under the JAX package's data mesh. The ranks of one model group
+hold the same rows and return the same losses.
 """
 
 from __future__ import annotations

@@ -57,28 +57,46 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+def heads_of(m, first: int, h: int):
+    """Heads [first, first + h) of a (B, H, Tq, Tk) mask or bias; one that
+    broadcasts over the heads (H = 1), or None, as it is."""
+    if m is None or m.shape[1] == 1:
+        return m
+    return m[:, first:first + h]
+
+
 class MultiHeadAttention(nn.Module):
     """MHA with a packed in-projection. `blocked` is a bool mask (True = may
-    not attend) broadcastable to (B, H, Tq, Tk); `bias` is additive."""
+    not attend) broadcastable to (B, H, Tq, Tk); `bias` is additive. The
+    heads it runs are those its `in_proj` holds: all of them, or a model
+    rank's under tensor parallelism (`parallel/tensor.py`: the q, k and v
+    columns of heads [first_head, first_head + h)), which then take their
+    slice of a mask or bias with a head axis."""
+
+    first_head = 0
 
     def __init__(self, c: int, heads: int):
         super().__init__()
-        self.heads = heads
+        self.heads, self.head_dim = heads, c // heads
         self.in_proj = nn.Linear(c, 3 * c)
         self.out_proj = nn.Linear(c, c)
 
     def forward(self, x, blocked=None, bias=None):
-        b, t, c = x.shape
-        h = self.heads
-        q, k, v = self.in_proj(x).reshape(b, t, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q * ((c // h) ** -0.5), k).float()
+        b, t = x.shape[:2]
+        d = self.head_dim
+        h = self.in_proj.weight.shape[0] // (3 * d)
+        if h != self.heads:
+            blocked = heads_of(blocked, self.first_head, h)
+            bias = heads_of(bias, self.first_head, h)
+        q, k, v = self.in_proj(x).reshape(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q * (d ** -0.5), k).float()
         if bias is not None:
             scores = scores + bias
         if blocked is not None:
             scores = scores.masked_fill(blocked, _MASKED)
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, c))
+        return self.out_proj(out.transpose(1, 2).reshape(b, t, h * d))
 
 
 class ResidualAttentionBlock(nn.Module):

@@ -33,10 +33,11 @@ class MaskedBatchNorm(nn.Module):
     unbiased variance, as the JAX package does; in eval mode it normalises
     with the running statistics. Params `scale`/`bias` and buffers
     `mean`/`var` keep flax's names. Under a process group the count and the
-    moments' sums are added over the ranks before dividing, where the JAX
-    package `psum`s them, by a reduction whose backward adds the ranks'
-    gradients: the statistics, their gradient and the running statistics
-    are those of the global batch on every rank."""
+    moments' sums are added over the data axis's ranks before dividing,
+    where the JAX package `psum`s them, by a reduction whose backward adds
+    the ranks' gradients: the statistics, their gradient and the running
+    statistics are those of the global batch on every rank (a model
+    group's ranks hold the same rows: the sum is not taken over them)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()

@@ -73,11 +73,13 @@ class UNetResBlock(RematBlock):
 
 class CrossAttention(nn.Module):
     """Multi-head attention; Q/K/V projections kept as separate bias-free
-    `to_q`/`to_k`/`to_v` (the JAX module concatenates them into one matmul)."""
+    `to_q`/`to_k`/`to_v` (the JAX module concatenates them into one matmul).
+    The heads it runs are those its `to_q` holds: all of them, or a model
+    rank's under tensor parallelism (`parallel/tensor.py`)."""
 
     def __init__(self, c: int, heads: int, ctx_dim: Optional[int] = None):
         super().__init__()
-        self.heads = heads
+        self.heads, self.head_dim = heads, c // heads
         cin = c if ctx_dim is None else ctx_dim
         self.to_q = nn.Linear(c, c, bias=False)
         self.to_k = nn.Linear(cin, c, bias=False)
@@ -86,14 +88,15 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None):
         ctx = x if context is None else context
-        b, t, c = x.shape
+        b, t = x.shape[:2]
+        d = self.head_dim
+        h = self.to_q.weight.shape[0] // d
 
         def split(z):
-            z = z.reshape(z.shape[0], z.shape[1], self.heads, c // self.heads)
-            return z.transpose(1, 2).contiguous()
+            return z.reshape(z.shape[0], z.shape[1], h, d).transpose(1, 2).contiguous()
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
-        out = attention(q, k, v).transpose(1, 2).reshape(b, t, c)
+        out = attention(q, k, v).transpose(1, 2).reshape(b, t, h * d)
         return self.to_out(out)
 
 

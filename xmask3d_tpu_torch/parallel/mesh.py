@@ -1,5 +1,5 @@
-"""Data parallelism across processes: the counterpart of the `data` axis of
-`xmask3d_tpu/parallel/mesh.py`.
+"""The process mesh: the counterpart of `xmask3d_tpu/parallel/mesh.py`'s
+`data` axis here, and of its `model` axis through `parallel/tensor.py`.
 
 Under the JAX package's data mesh, pjit splits a global batch's leading axis
 over the devices, sums every gradient, takes BatchNorm statistics over the
@@ -16,8 +16,13 @@ takes scene i on rank i % w (`scenes_of_rank`) and adds the IoU meters
 (`all_reduce_acc`). Without a process group every function is the
 identity, and nothing is communicated.
 
-Tensor and activation parallelism (the JAX module's `model` axis) are not
-here (ROADMAP A 6).
+`create_mesh(data, model)` lays the world out as the JAX module's
+`reshape(data, model)`: rank = data_rank * model + model_rank, so the ranks
+of one model group are consecutive. Once a mesh is made, the functions
+above work over its data group: the ranks of one model group hold the same
+rows, so a sum over the world would count them `model` times. The model
+group is what `parallel/tensor.py`'s layers reduce over. Activation
+sharding (`shard_spatial`) is not here (ROADMAP A 6).
 """
 
 from __future__ import annotations
@@ -74,6 +79,88 @@ def world_size() -> int:
     return dist.get_world_size() if distributed() else 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (data, model) layout of the world and this rank's place in it.
+    `data_group` is None for the whole world (a mesh without a model axis,
+    which then communicates as no mesh does); `model_group` is None when
+    the model axis is 1."""
+
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+
+_MESH: Optional[Mesh] = None
+
+
+def create_mesh(data: int = -1, model: int = 1) -> Mesh:
+    """Lay the world out as a (data, model) mesh and make it the current
+    one. data=-1 takes all remaining ranks. Raises where the JAX
+    `create_mesh` asserts: when `model` does not divide the world, or when
+    data * model is not the world size. Every rank must call it (it makes
+    the groups, each on every rank, in one order)."""
+    global _MESH
+    n = world_size()
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} ranks not divisible by model={model}")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} ranks")
+    dr, mr = divmod(rank(), model)
+    data_group = model_group = None
+    if model > 1:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == mr:
+                data_group = g
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == dr:
+                model_group = g
+    _MESH = Mesh(data, model, dr, mr, data_group, model_group)
+    return _MESH
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _MESH
+
+
+def model_size() -> int:
+    """The current mesh's model axis; 1 without a mesh."""
+    return _MESH.model if _MESH is not None else 1
+
+
+def model_rank() -> int:
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """Ranks that split a batch: the world over the model axis."""
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    return rank() // model_size()
+
+
+def _data_reduce(t: torch.Tensor) -> None:
+    """Sum t in place over the data group: the world without a model axis;
+    nothing when the data axis is 1."""
+    if model_size() == 1:
+        dist.all_reduce(t)
+    elif data_size() > 1:
+        dist.all_reduce(t, group=_MESH.data_group)
+
+
 def rows_of_rank(x, dim: int = 0):
     """This rank's equal share of `x` along `dim`: rows [r n / w, (r + 1) n
     / w) of a tensor or a list (of samples); a dict, tuple or dataclass (a
@@ -88,7 +175,7 @@ def rows_of_rank(x, dim: int = 0):
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return dataclasses.replace(x, **{f.name: rows_of_rank(getattr(x, f.name), dim)
                                          for f in dataclasses.fields(x)})
-    w, r = world_size(), rank()
+    w, r = data_size(), data_rank()
     n = x.shape[dim] if torch.is_tensor(x) else len(x)
     if n % w:
         raise ValueError(f"a batch of {n} rows does not split over {w} ranks")
@@ -99,8 +186,9 @@ def rows_of_rank(x, dim: int = 0):
 
 
 def scenes_of_rank(n: int) -> List[int]:
-    """The scene indices of this rank: i % w == r, as the JAX CLI shards."""
-    w, r = world_size(), rank()
+    """The scene indices of this rank: i % w == r, as the JAX CLI shards
+    (w and r of the data axis)."""
+    w, r = data_size(), data_rank()
     return [i for i in range(n) if i % w == r]
 
 
@@ -118,7 +206,7 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     if not distributed():
         return x
     y = x.clone()
-    dist.all_reduce(y)
+    _data_reduce(y)
     return y
 
 
@@ -128,13 +216,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
-        dist.all_reduce(y)
+        _data_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        _data_reduce(g)
         return g
 
 
@@ -156,7 +244,7 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+        _data_reduce(flat)
         off = 0
         for t in group:
             t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -176,7 +264,7 @@ def all_reduce_acc(acc):
         raise ValueError("an IoU meter holds a count that is not an integer")
     flat = torch.from_numpy(np.concatenate([v.reshape(-1) for v in leaves]).astype(np.int64))
     flat = flat.to(_comm_device())
-    dist.all_reduce(flat)
+    _data_reduce(flat)
     flat = flat.cpu().numpy()
     sums, off = [], 0
     for v in leaves:
@@ -203,3 +291,9 @@ def broadcast_module(module: torch.nn.Module) -> None:
         if not torch.equal(sums, ref):
             raise RuntimeError(f"rank {rank()}: the weights differ from rank 0's after the "
                                "broadcast")
+
+
+def shard_batch_by_host(global_index: np.ndarray) -> np.ndarray:
+    """This rank's slice of a global sample index, [data_rank::data] (the
+    JAX module's, over processes)."""
+    return global_index[data_rank()::data_size()]

@@ -39,6 +39,14 @@ Phases, each of which raises on failure:
      `bench`: `xmask3d_tpu_torch/tools/bench.py` at its defaults (3 scenes
      of 30 views) in scan, per-view and include-host mode, in this process,
      each printing its JSON line, with finite scenes/s;
+     `view_batch`: the bench's scan at 1, 2 and 4 views a forward
+     (`BENCH_VIEW_BATCH`, 2 scenes each), scenes/s; a step of 2 and of 4
+     views through the eager view body with every K1-K3 call held against
+     its plain version and timed (K2 beside `scaled_dot_product_attention`),
+     its peak bytes; 2 views a forward against 1 at a time on the same
+     views, coverage equal, labels logged in bf16 and held in fp32 (the
+     model built again in fp32 from the same seed); a replayed step at each
+     B profiled (device busy a view, idle share, launches);
      then it profiles one eager and one replayed view (device time by
      kernel, the device's idle share; the replayed view's launches read from
      the kernel names, since the wrappers' counters do not see replays), and
@@ -51,7 +59,13 @@ Phases, each of which raises on failure:
      views in that row order (labels, coverage, routing), the label
      agreement with the host-built views in their own row order; the
      build's and K1's device ms under either hierarchy, and the bytes a view
-     copies in under either route;
+     copies in under either route; after the main path's outputs,
+     `brick`: one view's two 3D UNets through the brick-dense path
+     (`XMASK3D_BRICK=1`, `brick_divisor` 8, no voxel dropped) against K1,
+     held in fp32, the bf16 gap logged, each path's device ms; and `int8`:
+     the W8A8 op at a pixel-decoder and a VAE shape, int8 operands, scales
+     and int32 products equal to the CPU's, fp32 outputs within 1 ulp,
+     device ms beside the bf16 library call;
   5. whole scenes at full width with the VAE's GroupNorm -> SiLU -> conv3x3
      stages on kernel K4 (`fused_gn`): the same seeded weights, two
      synthetic scenes of 40000 points and 8 views each through the
@@ -1393,7 +1407,10 @@ def same_host_hierarchy(a, b) -> bool:
 
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(x, list):
+        if x is None or y is None:  # no brick metadata
+            if x is not y:
+                return False
+        elif isinstance(x, list):
             if len(x) != len(y) or not all(np.array_equal(u, v) and np.asarray(u).dtype ==
                                            np.asarray(v).dtype for u, v in zip(x, y)):
                 return False
@@ -3089,6 +3106,338 @@ def tp_phase(ref, table, rows) -> None:
             row["tp_by_shape"] = k2[0]["by_shape"]
 
 
+# --------------------------------------------------------------------------
+# view batching, the brick-dense 3D conv, the W8A8 op
+# --------------------------------------------------------------------------
+
+VIEW_BATCHES = (1, 2, 4)
+VIEW_BATCH_SCENES = 2
+
+
+def _view_of(batch, i):
+    from xmask3d_tpu_torch.engine.graphs import tree_map
+
+    return tree_map(lambda t: t[i:i + 1], batch)
+
+
+def view_batch_phase(model, cfg, caps, statics, table, expected) -> None:
+    """BENCH_VIEW_BATCH, B views a forward. (a) `tools/bench.py` in scan
+    mode at each B of VIEW_BATCHES (VIEW_BATCH_SCENES scenes of 30 views),
+    its scenes/s; the counts, set to 0 before each run, see its warm-up and
+    capture. (b) one batch of B views (B = 2, 4) through the eager view body
+    with every kernel call recorded: each K1-K3 call held against its plain
+    version (bf16, the per-call tolerance), each kernel timed over the
+    step's calls (events; K2 beside `scaled_dot_product_attention`) with
+    its bound, and the step's peak bytes; at B = 2 the votes against its two
+    views through the view body one at a time, on the same host-built
+    hierarchies (no C 15 row order): the coverage equal; in bf16 the labels'
+    agreement and the routed outputs' largest float gaps logged (the
+    library GEMMs round otherwise at twice the rows); the same views
+    through the model built in fp32 from the same seed, where the labels
+    must agree on VIEW_BATCH_AGREEMENT of the voted points. (c) each B's
+    view body captured (the scene scan's step) and one replayed step
+    profiled: device busy ms a view, the idle share, and its launches from
+    the kernel names, one view's worth."""
+    import gc
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+    from xmask3d_tpu_torch.engine.serve import (
+        fresh_vote_state, make_scene_scan_step, make_view_body, stack_views)
+    from xmask3d_tpu_torch.tools import bench
+
+    n_cls = model.cfg.num_test_classes
+    report = {"phase": "view_batch", "bench": {}, "steps": {}, "profiles": {}}
+    for b in VIEW_BATCHES:
+        reset_launches()
+        t0 = time.time()
+        with environ(BENCH_SIZE="full", BENCH_VIEW_BATCH=str(b)):
+            line, votes = bench.main(num_scenes=VIEW_BATCH_SCENES)
+        counts = launches()
+        if not (math.isfinite(line["value"]) and line["value"] > 0) or votes.sum() <= 0:
+            raise AssertionError(f"bench at {b} views a forward: {line}, {int(votes.sum())} votes")
+        for kernel in EXPECTED_NONZERO:
+            if counts[kernel] == 0:
+                raise AssertionError(f"bench at {b} views a forward: {kernel} never launched")
+        report["bench"][b] = dict(line, seconds=time.time() - t0,
+                                  launches_warmup_and_capture=counts)
+        del votes
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    kw = dict(num_points=20000, image_size=(512, 512), mask_shape=tuple(cfg.mask_shape),
+              context_length=77, vocab_size=49408)
+    body = make_view_body(model, cfg)
+    batches = {b: synthetic_batch(b, caps, seed=300, **kw) for b in VIEW_BATCHES}
+    for b in VIEW_BATCHES[1:]:
+        calls = {name: [] for name in EXPECTED_NONZERO}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with recording(calls):
+            votes = body(batches[b], statics, *fresh_vote_state(caps.max_points, n_cls))
+        torch.cuda.synchronize()
+        step = {"peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches(),
+                "kernels": {}}
+        for name in EXPECTED_NONZERO:
+            if step["launches"][name] != expected[name]:
+                raise AssertionError(f"{name}: {step['launches'][name]} launches in a step of "
+                                     f"{b} views, expected {expected[name]}")
+            k, cs = table[name], calls[name]
+            err, worst, at, _, outs = max_err(k["fn"], k["plain"], cs, TOL["bf16"])
+            if not worst <= 1.0:
+                raise AssertionError(f"{name} at {b} views: call {at} is {worst}x its tolerance")
+            bound_ms, bound_by = bound(name, cs, outs)
+            del outs
+            step["kernels"][name] = {
+                "launches": len(cs), "max_abs_err": err, "worst_err_over_tol": worst,
+                "ms": time_calls(k["fn"], cs, 3), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": time_calls(F.scaled_dot_product_attention, cs, 3)
+                if name == "flash_attention" else None}
+        jobs = [(table[n]["fn"], calls[n]) for n in EXPECTED_NONZERO]
+        jobs.append((F.scaled_dot_product_attention, calls["flash_attention"]))
+        ms = device_ms(jobs, 3)
+        for name, dms in zip(EXPECTED_NONZERO, ms):
+            step["kernels"][name]["device_ms"] = dms
+        step["kernels"]["flash_attention"]["library_device_ms"] = ms[-1]
+        del calls, jobs
+        if b == 2:
+            step["against_one_view_a_forward"] = {
+                "bf16": _batched_against_single(model, cfg, body, batches[b], statics, votes,
+                                                caps)}
+        report["steps"][b] = step
+        del votes
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["compute_dtype"] = "float32"
+    model32 = build_model(cfg32, seed=0)
+    statics32 = build_statics(model32, cfg32)
+    body32 = make_view_body(model32, cfg32)
+    votes32 = body32(batches[2], statics32, *fresh_vote_state(caps.max_points, n_cls))
+    got = _batched_against_single(model32, cfg32, body32, batches[2], statics32, votes32, caps)
+    report["steps"][2]["against_one_view_a_forward"]["fp32"] = got
+    del model32, statics32, body32, votes32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if got["label_agreement"] < VIEW_BATCH_AGREEMENT:
+        log(report)
+        raise AssertionError(f"fp32: 2 views a forward agree with 1 at a time on "
+                             f"{got['label_agreement']} of the voted points, below "
+                             f"{VIEW_BATCH_AGREEMENT}")
+
+    scan = make_scene_scan_step(model, cfg)
+    for b in VIEW_BATCHES:
+        votes = fresh_vote_state(caps.max_points, n_cls)
+        scan(stack_views([batches[b]]), [0], statics, *votes)  # captures at b views
+        prof = replayed_profile(f"view_batch_profile_{b}", scan.step,
+                                (batches[b], statics, *votes), with_statistics(expected))
+        report["profiles"][b] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                      "device_idle_share", "port_kernels_ms")}
+        report["profiles"][b]["device_busy_ms_a_view"] = prof["device_busy_ms"] / b
+        scan.step.reset()
+        torch.cuda.empty_cache()
+    log(report)
+
+
+# 2 views a forward against 1 at a time on the same host-built views, in
+# fp32: the share of voted points whose label must agree (the library GEMMs
+# sum in another order at twice the rows; random weights leave near-ties)
+VIEW_BATCH_AGREEMENT = 0.999
+
+
+def _batched_against_single(model, cfg, body, batch, statics, votes, caps) -> dict:
+    """`batch`'s views one at a time through `body` against `votes`, the
+    body's votes for them in one forward: coverage must be equal; returns
+    the labels' agreement over the covered points, whether the tables are
+    equal, and the routed outputs' largest float gap over their scale."""
+    import torch
+
+    from xmask3d_tpu_torch.engine.infer import ensemble_and_route
+    from xmask3d_tpu_torch.engine.serve import fresh_vote_state
+
+    mc = model.cfg
+    one = fresh_vote_state(caps.max_points, mc.num_test_classes)
+    n = batch["point_valid"].shape[0]
+    for i in range(n):
+        one = body(_view_of(batch, i), statics, *one)
+    if not torch.equal(votes[1], one[1]):
+        raise AssertionError(f"{n} views a forward cover other points than 1 at a time")
+    covered = one[1] > 0
+    agree = float((votes[0].argmax(1) == one[0].argmax(1))[covered].float().mean())
+    with torch.no_grad():
+        def routed(b):
+            return ensemble_and_route(model.eval_forward(b, statics), mc.base_category,
+                                      mc.novel_category, mc.num_test_classes,
+                                      cfg.base_ratio, cfg.novel_ratio)
+        both = routed(batch)
+        gaps = {}
+        for i in range(n):
+            single = routed(_view_of(batch, i))
+            for k in FLOAT_KEYS:
+                if both[k].ndim == 0 or both[k].shape[0] != n:
+                    continue
+                w = single[k][0].float()
+                e = float((both[k][i].float() - w).abs().max()) / max(1.0, float(w.abs().max()))
+                gaps[k] = max(gaps.get(k, 0.0), e)
+    return {"label_agreement": agree, "votes_equal": bool(torch.equal(votes[0], one[0])),
+            "covered_points": int(covered.sum()), "float_gap_over_scale": gaps}
+
+# the brick phase: nb_cap = level capacity // BRICK_DIVISOR bricks a level;
+# a main-path view (13,400-13,900 live voxels) fills 1,474-1,552 of level 0's
+# 3,072 (occupancy ~14%), so none is dropped
+BRICK_DIVISOR = 8
+
+
+def brick_phase(model, caps, view) -> None:
+    """XMASK3D_BRICK: one main-path view's two 3D UNets through the
+    brick-dense path (`ops/brick_conv.py`: every k3 / k5 conv a cuDNN conv3d
+    over halo'd 4^3 bricks, the k2 s2 convs still K1) and through K1 (its
+    fused stem), on the view's host hierarchy built again with
+    BRICK_DIVISOR's brick metadata (no voxel may be dropped). Held: the two
+    UNets in fp32 (copies of the bf16 model's), both outputs of each through
+    bricks against K1, within the fp32 per-call tolerance. Logged: `run_3d`'s
+    bf16 outputs (`pred_3d`, the per-point features, `binary_scores` and the
+    global `imp_condition`) of the brick path against K1's over the bf16
+    per-call tolerance (the paths round ~50 layers' outputs to bf16 from
+    other summation orders, so the gap compounds past one call's); each
+    path's device ms over the whole 3D branch, and K1's calls in the K1
+    path alone."""
+    import torch
+
+    from xmask3d_tpu_torch.ops.sparse_conv import (
+        build_hierarchy, sparse_conv, stack_hierarchies)
+
+    lv0 = view["hierarchy"].levels[0]
+    coords = lv0.coords[0, :int(lv0.num[0])].cpu().numpy()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # brick_metadata warns when it drops voxels
+        h = build_hierarchy(coords, caps.level_caps(), brick_divisor=BRICK_DIVISOR)
+    dropped = [int(n - (sor[:n] >= 0).sum()) for n, (_, sor, _) in zip(h.num, h.bricks)]
+    bricks_used = [int(len(set((sor[sor >= 0] // 64).tolist()))) for _, sor, _ in h.bricks]
+    batch = dict(view, hierarchy=stack_hierarchies([h], view["img"].device))
+    calls = {"sparse_conv": []}
+    with torch.no_grad():
+        with environ(XMASK3D_BRICK="0"), recording(calls):
+            want = model.run_3d(batch)
+        with environ(XMASK3D_BRICK="1"):
+            got = model.run_3d(batch)
+        torch.cuda.synchronize()
+        report = {"phase": "brick", "brick_divisor": BRICK_DIVISOR, "dropped_voxels": dropped,
+                  "bricks_used": bricks_used,
+                  "brick_capacity": [len(sv) // 64 for _, _, sv in h.bricks], "outputs": {}}
+        for key in ("pred_3d", "binary_scores", "imp_condition"):
+            ref, out = want[key].float(), got[key].float()
+            err = float((out - ref).abs().max())
+            tol = TOL["bf16"] * max(1.0, float(ref.abs().max()))
+            report["outputs"][key] = {"max_abs_err": err, "err_over_bf16_tol": err / tol}
+        del want, got
+        feats = batch["voxel_feats"].float()
+        report["fp32"] = {}
+        for tower in ("pc_decoder", "pc_binary_head"):
+            net = copy.deepcopy(getattr(model, tower).MinkUNet_0).float()
+            with environ(XMASK3D_BRICK="0"):
+                ref = net(feats, batch["hierarchy"])
+            with environ(XMASK3D_BRICK="1"):
+                out = net(feats, batch["hierarchy"])
+            for name, r, o in zip(("bottleneck", "out"), ref, out):
+                err = float((o - r).abs().max())
+                tol = TOL["fp32"] * max(1.0, float(r.abs().max()))
+                report["fp32"][f"{tower}.{name}"] = {"max_abs_err": err, "tol": tol,
+                                                    "ok": err <= tol}
+            del net, ref, out
+        k1_calls = calls["sparse_conv"]
+
+        def run(flag):
+            def fn():
+                with environ(XMASK3D_BRICK=flag):
+                    model.run_3d(batch)
+            return fn
+
+        ms = device_ms([(run("0"), [()]), (run("1"), [()]), (sparse_conv, k1_calls)], 3)
+        reset_launches()
+        with environ(XMASK3D_BRICK="1"):
+            model.run_3d(batch)
+        n_brick_k1 = launches()["sparse_conv"]
+    report.update({"k1_path_device_ms": ms[0], "brick_path_device_ms": ms[1],
+                   "k1_calls_device_ms": ms[2], "k1_calls": len(k1_calls),
+                   "k1_launches_in_brick_path": n_brick_k1})
+    log(report)
+    bad = {k: v for k, v in report["fp32"].items() if not v["ok"]}
+    if any(dropped) or bad:
+        raise AssertionError(f"brick path: dropped {dropped}, outside the tolerance {bad}")
+
+
+# the W8A8 phase's shapes: a pixel-decoder FFN (the 64^2 + 32^2 + 16^2
+# tokens of a 512x512 view, 256 -> 1024) and a VAE encoder conv at 128^2
+INT8_DOT = ((1, 5376, 256), (256, 1024))
+INT8_CONV = ((1, 128, 128, 256), (256, 256, 3, 3))
+
+
+def _ordered(a):
+    """fp32 values as integers in the order of the floats (one apart for
+    adjacent floats, -0.0 and 0.0 equal)."""
+    import numpy as np
+
+    i = a.view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def int8_phase() -> None:
+    """`ops/int8_quant.py` on the card (torch._int_mm, the conv through
+    im2col) against its CPU plain version (a float64 matmul, exact) on the same
+    seeded inputs: int8 operands and int32 products equal, fp32 outputs
+    within 1 ulp; device ms of `quant_dot` / `quant_conv` beside the bf16
+    `torch.matmul` / `F.conv2d` of the same shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from xmask3d_tpu_torch.ops import int8_quant as q
+
+    gen = torch.Generator().manual_seed(0)
+    x, w = (torch.randn(s, generator=gen) for s in INT8_DOT)
+    img, k = (torch.randn(s, generator=gen) for s in INT8_CONV)
+    w, k = w * 0.05, k * 0.05
+    report = {"phase": "int8"}
+    cases = (("quant_dot", q.quant_dot_int, q.quant_dot, (x, w), ()),
+             ("quant_conv", q.quant_conv_int, q.quant_conv, (img, k), ((1, 1), "SAME")))
+    for name, ints, fn, args, extra in cases:
+        cpu = ints(*args, *extra)
+        dev = ints(*(a.cuda() for a in args), *extra)
+        for part, a, b in zip(("x_int8", "w_int8", "int32_product", "x_scale", "w_scale"),
+                              cpu, dev):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"{name}: the card's {part} differs from the CPU's")
+        got = fn(*(a.cuda() for a in args), *extra, torch.float32).cpu().numpy()
+        want = fn(*args, *extra, torch.float32).numpy()
+        ulp = int(np.max(np.abs(_ordered(got) - _ordered(want))))
+        if ulp > 1:
+            raise AssertionError(f"{name}: fp32 outputs {ulp} ulp apart")
+        report[name] = {"shape": [list(a.shape) for a in args], "int32_equal": True,
+                        "max_ulp": ulp}
+    xd, wd = x.cuda(), w.cuda()
+    imgd, kd = img.cuda(), k.cuda()
+    xb, wb = xd.bfloat16(), wd.bfloat16()
+    imgb, kb = imgd.permute(0, 3, 1, 2).contiguous().bfloat16(), kd.bfloat16()
+    jobs = [(q.quant_dot, [(xd, wd, torch.bfloat16)]), (torch.matmul, [(xb, wb)]),
+            (q.quant_conv, [(imgd, kd, (1, 1), "SAME", torch.bfloat16)]),
+            (F.conv2d, [(imgb, kb, None, 1, 1)])]
+    ms = device_ms(jobs, 5)
+    events = [time_calls(fn, calls, 5) for fn, calls in jobs]
+    for (name, key), d, e in zip((("quant_dot", "ms"), ("quant_dot", "bf16_matmul_ms"),
+                                  ("quant_conv", "ms"), ("quant_conv", "bf16_conv2d_ms")),
+                                 ms, events):
+        report[name][key.replace("ms", "device_ms")] = d
+        report[name][key] = e
+    log(report)
+
+
 def main() -> int:
     import torch
 
@@ -3205,6 +3554,7 @@ def main() -> int:
     infer_graph, scan = graph_main_path(model, cfg, caps, views, statics)
     scene_scan(scan, model, cfg, caps, statics)
     bench_phase()
+    view_batch_phase(model, cfg, caps, statics, table, expected)
     log(profile_view(view_body, views[1], statics, votes, counter))
     log(replayed_profile("graph_profile", scan.step, (views[1], statics, votes, counter),
                          with_statistics(expected)))
@@ -3224,6 +3574,8 @@ def main() -> int:
     log({"phase": "outputs", "ok": True,
          "pred_labels": outputs["pred_labels"][0, :10].tolist(),
          "final_masks": int(outputs["final_mask_valid"].sum())})
+    brick_phase(model, caps, views[1])
+    int8_phase()
     del model, outputs, views, statics, view_body, votes, counter
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,6 +8,9 @@ the CPU, one scene of three views.
   same vote table.
 - Include-host mode runs with views built by worker threads, here with the
   hierarchy built on the device (`BENCH_DEVICE_HIER`); scene reuse runs.
+- BENCH_VIEW_BATCH=2 runs two views a forward (scan mode, and scene reuse
+  at BENCH_SCENE_FACTOR=2); `scene_caps_from_view_caps` takes the JAX
+  package's factor.
 - Without a GPU and without `device="cpu"` it raises.
 """
 
@@ -30,14 +33,15 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _run(monkeypatch, capsys, **env):
+def _run(monkeypatch, capsys, views_per_scene=3, **env):
     for k in ("BENCH_SCAN_VIEWS", "BENCH_INCLUDE_HOST", "BENCH_DEVICE_HIER", "BENCH_SCENE_REUSE",
-              "BENCH_PIPELINE_SCENES", "BENCH_DISTINCT_VIEWS", "BENCH_HOST_WORKERS"):
+              "BENCH_PIPELINE_SCENES", "BENCH_DISTINCT_VIEWS", "BENCH_HOST_WORKERS",
+              "BENCH_VIEW_BATCH", "BENCH_SCENE_FACTOR", "BENCH_BF16_PARAMS"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("BENCH_SIZE", "tiny")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    line, votes = bench.main(device="cpu", num_scenes=1, views_per_scene=3)
+    line, votes = bench.main(device="cpu", num_scenes=1, views_per_scene=views_per_scene)
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1]) == line and set(line) == KEYS
     assert out[-2].startswith("# device: cpu")
@@ -64,6 +68,30 @@ def test_include_host_mode_on_device_hierarchies(monkeypatch, capsys):
 
 def test_scene_reuse_mode(monkeypatch, capsys):
     line, votes = _run(monkeypatch, capsys, BENCH_SCENE_REUSE="1")
+    assert line["metric"] == "scene_inference_throughput_reuse" and votes.sum() > 0
+
+
+def test_view_batch_scan_mode(monkeypatch, capsys):
+    """Two views a forward, four views a scene: two steps of the view body
+    captured at two views, every view's 400 points voted once."""
+    line, votes = _run(monkeypatch, capsys, BENCH_VIEW_BATCH="2", views_per_scene=4)
+    assert line["metric"] == "scene_inference_throughput"
+    assert votes.shape == (512, 19) and votes.sum() == 4 * 400
+
+
+def test_scene_factor_and_view_batch_under_scene_reuse(monkeypatch, capsys):
+    from xmask3d_tpu.data.batching import Capacities as JaxCapacities
+    from xmask3d_tpu.engine.scene_reuse import scene_caps_from_view_caps as jax_scene_caps
+    from xmask3d_tpu_torch.data.batching import Capacities
+    from xmask3d_tpu_torch.engine.scene_reuse import scene_caps_from_view_caps
+
+    for factor in (2, 4, 8):
+        want = jax_scene_caps(JaxCapacities(512, 256, 8), factor=factor)
+        got = scene_caps_from_view_caps(Capacities(512, 256, 8), factor=factor)
+        assert (got.max_points, got.max_voxels, got.max_targets, got.level_caps()) == (
+            want.max_points, want.max_voxels, want.max_targets, want.level_caps())
+    line, votes = _run(monkeypatch, capsys, BENCH_SCENE_REUSE="1", BENCH_SCENE_FACTOR="2",
+                       BENCH_VIEW_BATCH="2", views_per_scene=4)
     assert line["metric"] == "scene_inference_throughput_reuse" and votes.sum() > 0
 
 

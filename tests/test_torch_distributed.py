@@ -255,6 +255,8 @@ def test_trainer_on_two_ranks_writes_only_on_rank_zero(tmp_path):
 
 
 def _tensors(tree):
+    if tree is None:  # a hierarchy level's brick metadata, when built without
+        return []
     if torch.is_tensor(tree):
         return [tree]
     if isinstance(tree, dict):

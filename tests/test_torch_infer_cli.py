@@ -402,3 +402,66 @@ def test_cli_scannet_branch(mini_root):
     with pytest.raises(RuntimeError, match="HashTokenizer"):
         infer_cli.main(argv, device="cpu")
     _check_summary(infer_cli.main(argv[:2] + ["--allow_hash_tokenizer"] + argv[2:], device="cpu"))
+
+
+def _bridge_tree(model):
+    """The model's parameters and buffers as the JAX {params, batch_stats}
+    tree (numpy, the port's layouts: the cast is elementwise)."""
+    from xmask3d_tpu_torch.checkpoint.from_jax import bridge_tensors
+
+    tree = {"params": {}, "batch_stats": {}}
+    for bt in bridge_tensors(model):
+        node = tree[bt.collection]
+        *parents, leaf = bt.path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = bt.tensor.detach().numpy().copy()
+    return tree
+
+
+def test_bf16_params_flag_matches_the_jax_cli(monkeypatch):
+    """`--bf16_params` and its default from XMASK3D_BF16_PARAMS parse alike
+    in both CLIs. The port's `cast_params_bf16` gives every fp32 parameter
+    the values of the JAX `cast_params_bf16` (exact) and leaves the
+    BatchNorm statistics fp32 and unchanged, on the tiny model at fp32
+    compute. Under the config's bf16 compute the port stores no fp32
+    parameter, so the tiny CLI's synthetic branch gives the same summary
+    bit for bit with and without the flag."""
+    argv = ["--config", CONFIG, "--synthetic", "--tiny", "--num_scenes", "1",
+            "max_points", "512", "max_voxels", "256", "max_targets", "8",
+            "mask_shape", "[24,32]"]
+    for parser in (infer_cli.get_parser(), jcli.get_parser()):
+        assert parser.parse_args(argv + ["--bf16_params"]).bf16_params
+        assert not parser.parse_args(argv).bf16_params
+    monkeypatch.setenv("XMASK3D_BF16_PARAMS", "1")
+    for parser in (infer_cli.get_parser(), jcli.get_parser()):
+        assert parser.parse_args(argv).bf16_params
+
+    cfg = load_config(CONFIG)
+    cfg.update({"compute_dtype": "float32", "mask_shape": [24, 32]})
+    model = build_model(cfg, tiny=True, device="cpu")
+    want = jcli.cast_params_bf16(_bridge_tree(model))
+    assert infer_cli.cast_params_bf16(model) == len(list(model.parameters()))
+    got = _bridge_tree(model)
+    for col in ("params", "batch_stats"):
+        flat_want, flat_got = _flat_tree(want[col]), _flat_tree(got[col])
+        assert flat_want.keys() == flat_got.keys()
+        for path, w in flat_want.items():
+            assert flat_got[path].dtype == np.float32, path
+            np.testing.assert_array_equal(flat_got[path], np.asarray(w, np.float32), err_msg=path)
+    assert all(np.asarray(w).dtype == np.float32 for w in _flat_tree(want["batch_stats"]).values())
+
+    summary_on = infer_cli.main(argv, device="cpu")
+    monkeypatch.delenv("XMASK3D_BF16_PARAMS")
+    summary_off = infer_cli.main(argv, device="cpu")
+    _check_summary(summary_on)
+    assert {k: v for k, v in summary_on.items() if k != "scenes_per_sec"} == \
+        {k: v for k, v in summary_off.items() if k != "scenes_per_sec"}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_tree(v, path) if isinstance(v, dict) else {path: np.asarray(v)})
+    return out

@@ -58,6 +58,8 @@ def _leaves(h):
     out = []
     for f in dataclasses.fields(h):
         v = getattr(h, f.name)
+        if v is None:  # the brick metadata, built only with a brick_divisor
+            continue
         if isinstance(v, list):
             out += [(f"{f.name}[{i}]", np.asarray(x)) for i, x in enumerate(v)]
         else:

@@ -290,6 +290,49 @@ def test_scene_scan_matches_jax_and_per_view_dispatch(tiny_pair, plumbed):
         scan(stacked, idxseq, pstatics, *votes0, scene3d={})
 
 
+def test_view_body_at_two_views_equals_each_view_alone(tiny_pair):
+    """Two views a forward (the bench's BENCH_VIEW_BATCH=2), fp32 on the
+    CPU: each view's routed predictions equal its own one-view forward's
+    (labels exactly, scores within 1e-5 of max(1, |value|): the batched
+    contractions may round differently) and the view body's votes equal the
+    two one-view calls' votes, exactly. The one-view forward is held to the
+    JAX package by `test_torch_model.py`."""
+    from xmask3d_tpu_torch.data.synthetic import synthetic_batch
+    from xmask3d_tpu_torch.engine.infer import ensemble_and_route
+
+    port, pstatics, cfg = tiny_pair["port"], tiny_pair["pstatics"], tiny_pair["pcfg"]
+    mc = port.cfg
+    both = synthetic_batch(2, Capacities(512, 256, 8), seed=3, num_points=400,
+                           num_classes=cfg.classes, device="cpu", **SMALL)
+    views = [tree_map(lambda t, i=i: t[i:i + 1], both) for i in (0, 1)]
+
+    def routed(batch):
+        with torch.no_grad():
+            return ensemble_and_route(port.eval_forward(batch, pstatics), mc.base_category,
+                                      mc.novel_category, mc.num_test_classes,
+                                      cfg.base_ratio, cfg.novel_ratio)
+
+    got, each = routed(both), [routed(v) for v in views]
+    batched = [k for k, v in got.items() if torch.is_tensor(v) and v.ndim and v.shape[0] == 2]
+    assert "pred" in batched
+    for i in (0, 1):
+        for k in batched:
+            g, w = got[k][i], each[i][k][0]
+            if g.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * max(1.0, float(w.abs().max())),
+                                           msg=f"view {i} {k}")
+            else:
+                assert torch.equal(g, w), f"view {i} {k}"
+    body = serve.make_view_body(port, cfg, device="cpu")
+    votes2 = body(both, pstatics, *serve.fresh_vote_state(512, 19, device="cpu"))
+    votes1 = serve.fresh_vote_state(512, 19, device="cpu")
+    for v in views:
+        votes1 = body(v, pstatics, *votes1)
+    for g, w in zip(votes2, votes1):
+        assert torch.equal(g, w)
+    assert int(votes2[1].sum()) == int(both["point_valid"].sum())
+
+
 # --------------------------------------------------------------------------
 # the CLI: --ckpt, --converted, --save_ply
 # --------------------------------------------------------------------------

@@ -468,3 +468,182 @@ def test_trainer_logs_the_config_keys_it_does_not_honour(tmp_path):
         with pytest.raises(ValueError, match=why):
             trainer.main(_tiny_argv(tmp_path / "bad", f"mesh_shape.{axis}", n), device="cpu")
     assert _cfg(load_config)["remat_backbone"] is True
+
+
+# ---------------------------------------------------------------------------
+# a JAX run's orbax checkpoint into the port (scripts/orbax_to_torch.py)
+# ---------------------------------------------------------------------------
+
+UPDATE_TOL = 1e-6  # fp32, relative to each leaf's largest value
+
+
+def _orbax_to_torch():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "orbax_to_torch.py")
+    spec = importlib.util.spec_from_file_location("orbax_to_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reduced_opts():
+    return [str(x) for k, v in REDUCED.items()
+            for x in (k, json.dumps(v) if isinstance(v, list) else v)]
+
+
+def _trainable_and_some_frozen(params, label, keep=(
+        "backbone/feature_extractor/ldm_extractor/shared_noise", "clip/logit_scale")):
+    """The JAX params tree without the frozen towers' leaves but `keep`: a
+    checkpoint holds no frozen leaf, the frozen group's state stays in the
+    optimizer (as masked leaves), and the update compiles in a third of the
+    time over 440 leaves instead of 1,460."""
+    out = {}
+    for path, leaf in _flat(params).items():
+        if label(path.split("/")) == "frozen" and path not in keep:
+            continue
+        node = out
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+@pytest.fixture(scope="module")
+def orbax_saved(step_pair, tmp_path_factory):
+    """One optax update of the step's JAX weights (the trainable ones and
+    two frozen leaves) on seeded random gradients (no forward; the update
+    jitted), saved by the JAX package's orbax Checkpointer at step 1 with
+    perturbed BatchNorm statistics; and the next update on the same
+    gradients."""
+    import optax
+    from xmask3d_tpu.checkpoint.orbax_io import Checkpointer as OrbaxCheckpointer
+
+    from xmask3d_tpu.engine.train_step import param_label
+
+    jcfg = _cfg(jax_load_config)
+    opt = jax_make_optimizer(jcfg.lr_3d, jcfg.lr_others, TOTAL_STEPS)
+    rng = np.random.RandomState(3)
+    params = _trainable_and_some_frozen(step_pair["variables"]["params"], param_label)
+    grads = jax.tree_util.tree_map(lambda p: np.asarray(rng.randn(*np.shape(p)), np.float32),
+                                   params)
+    stats = jax.tree_util.tree_map(
+        lambda s: np.asarray(np.abs(np.asarray(s) + rng.randn(*np.shape(s))), np.float32),
+        step_pair["variables"]["batch_stats"])
+
+    @jax.jit
+    def update(params, opt_state):
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    params, opt_state = update(params, jax.jit(opt.init)(params))
+    root = tmp_path_factory.mktemp("orbax")
+    state = JaxTrainState(params=params, batch_stats=stats, opt_state=opt_state,
+                          step=jnp.ones((), jnp.int32), rng=jax.random.PRNGKey(5))
+    OrbaxCheckpointer(str(root / "jax" / "model")).save(1, state, best_iou=0.25)
+    return {"root": root, "params": _flat(jax.device_get(params)), "grads": _flat(grads),
+            "stats": _flat(stats), "inner": jax.device_get(opt_state.inner_states),
+            "next": _flat(jax.device_get(update(params, opt_state)[0]))}
+
+
+@pytest.fixture(scope="module")
+def orbax_run(orbax_saved):
+    """`orbax_saved` converted by `scripts/orbax_to_torch.py` into a port
+    checkpoint directory."""
+    root = orbax_saved["root"]
+    written, tree = _orbax_to_torch().convert(
+        str(root / "jax" / "model"), str(root / "port" / "model"), CONFIG, _reduced_opts(),
+        tiny=True)
+    return {**orbax_saved, "written": written, "tree": tree}
+
+
+def test_orbax_checkpoint_reads_without_a_template(orbax_run):
+    """The reader sees optax's states as orbax gives them without a
+    template: each group's adamw chain as a list whose first state holds
+    the count and the moments, the other group's leaves masked (None)."""
+    tree = orbax_run["tree"]
+    assert tree["meta"] == {"step": 1, "best_iou": 0.25}
+    assert set(tree["trainable"]) == {p for g in ("3d", "others")
+                                      for p in _flat(orbax_run["inner"][g].inner_state[0].mu)}
+    for g in ("3d", "others"):
+        adam = tree["opt_state"]["inner_states"][g]["inner_state"][0]
+        assert int(adam["count"]) == 1
+        masked = adam["mu"]["pc_decoder"]["MinkUNet_0"]["conv0"]["kernel"] is None
+        assert masked == (g == "others"), g
+        assert adam["mu"]["clip"]["logit_scale"] is None  # the frozen group's
+    assert tree["opt_state"]["inner_states"]["frozen"]["inner_state"] is None
+
+
+def _port_layout(fn, a):
+    return np.asarray(fn(a) if fn is not None else a)
+
+
+def test_orbax_checkpoint_restores_into_the_port_and_updates_as_optax(orbax_run):
+    """Every leaf of the converted checkpoint equals the JAX one after the
+    weight bridge's relayout: trainable masters, BatchNorm statistics,
+    AdamW's moments and counts (as `Checkpointer.restore` loads them into a
+    built state, and `restore_for_serving` into a serving model); then one
+    more update on the same gradients moves the masters as optax moves the
+    JAX parameters, within UPDATE_TOL of each leaf's largest value."""
+    from xmask3d_tpu_torch.checkpoint.torch_io import Checkpointer
+    from xmask3d_tpu_torch.engine.builder import build_model, label_tree
+
+    assert orbax_run["written"].endswith("step_1.pt")
+    cfg = _cfg(load_config)
+    model = build_train_model(cfg, tiny=True, seed=1, device="cpu")
+    state = create_train_state(model, make_optimizer(model, cfg.lr_3d, cfg.lr_others,
+                                                     TOTAL_STEPS))
+    state, meta = Checkpointer(str(orbax_run["root"] / "port" / "model")).restore(state)
+    assert meta == {"step": 1, "best_iou": 0.25} and state.step == 1
+    adam = state.optimizer.adamw.state
+    labels = label_tree(state.model)
+    inner = orbax_run["inner"]
+    mu = {g: _flat(inner[g].inner_state[0].mu) for g in ("3d", "others")}
+    nu = {g: _flat(inner[g].inner_state[0].nu) for g in ("3d", "others")}
+    count = {g: int(inner[g].inner_state[0].count) for g in ("3d", "others")}
+    n = {"params": 0, "batch_stats": 0}
+    for name, t, col, path, fn in _leaves(state.model):
+        if col == "batch_stats":
+            np.testing.assert_array_equal(t.numpy(), orbax_run["stats"][path], err_msg=name)
+            n[col] += 1
+        elif labels[name] != "frozen":
+            g = labels[name]
+            np.testing.assert_array_equal(
+                t.detach().numpy(), _port_layout(fn, orbax_run["params"][path]), err_msg=name)
+            np.testing.assert_array_equal(adam[t]["exp_avg"].numpy(),
+                                          _port_layout(fn, mu[g][path]), err_msg=name)
+            np.testing.assert_array_equal(adam[t]["exp_avg_sq"].numpy(),
+                                          _port_layout(fn, nu[g][path]), err_msg=name)
+            assert int(adam[t]["step"]) == count[g] == 1, name
+            n[col] += 1
+    assert n["params"] == sum(len(m) for m in mu.values()) and n["batch_stats"] == len(
+        orbax_run["stats"])
+
+    serving = build_model(cfg, tiny=True, seed=2, device="cpu")
+    Checkpointer(str(orbax_run["root"] / "port" / "model")).restore_for_serving(serving)
+    for name, t, col, path, fn in _leaves(serving):
+        want = orbax_run["stats"] if col == "batch_stats" else orbax_run["params"]
+        if col == "batch_stats" or labels[name] != "frozen":
+            np.testing.assert_array_equal(t.numpy(), _port_layout(fn, want[path]), err_msg=name)
+
+    with torch.no_grad():
+        for name, t, col, path, fn in _leaves(state.model):
+            if col == "params" and labels[name] != "frozen":
+                t.grad = torch.from_numpy(_port_layout(fn, orbax_run["grads"][path]).copy())
+    state.optimizer.step(state.step)
+    for name, t, col, path, fn in _leaves(state.model):
+        if col == "params" and labels[name] != "frozen":
+            want = _port_layout(fn, orbax_run["next"][path])
+            err = float(np.abs(t.detach().numpy() - want).max())
+            assert err <= UPDATE_TOL * max(float(np.abs(want).max()), 1e-30), (name, err)
+
+
+def test_an_orbax_directory_given_to_the_port_names_the_converter(orbax_run):
+    from xmask3d_tpu_torch.engine.infer_cli import build_serving_model
+
+    with pytest.raises(FileNotFoundError, match="orbax_to_torch"):
+        build_serving_model(_cfg(load_config), tiny=True, device="cpu",
+                            ckpt=str(orbax_run["root"] / "jax" / "model"))

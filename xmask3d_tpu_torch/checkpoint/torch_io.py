@@ -30,6 +30,13 @@ from xmask3d_tpu_torch.parallel.tensor import gather_tensor, shard_tensor, shard
 _FILE = re.compile(r"step_(\d+)\.pt$")
 
 
+def _orbax_steps(directory: str):
+    """The steps of orbax checkpoints in `directory`: subdirectories named
+    by their step that hold orbax's `_CHECKPOINT_METADATA`."""
+    return sorted(int(f) for f in os.listdir(directory) if f.isdigit()
+                  and os.path.isfile(os.path.join(directory, f, "_CHECKPOINT_METADATA")))
+
+
 def _trainable(state):
     """{dotted name: (parameter, master)} of the trainable parameters."""
     labels = label_tree(state.model)
@@ -94,6 +101,11 @@ class Checkpointer:
         }
         if rank() != 0:
             return
+        self.write(step, payload)
+
+    def write(self, step: int, payload: dict) -> None:
+        """Write a checkpoint payload as the file of `step` (through a
+        temporary file), keeping the newest `max_to_keep` files."""
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
@@ -103,6 +115,11 @@ class Checkpointer:
     def _load(self, step: Optional[int]) -> dict:
         step = self.latest_step() if step is None else step
         if step is None:
+            if _orbax_steps(self.directory):
+                raise FileNotFoundError(
+                    f"{self.directory} holds a JAX run's orbax checkpoints; convert them "
+                    "first: python scripts/orbax_to_torch.py --config <config> --src "
+                    f"{self.directory} --dst <dir> (on a machine with orbax)")
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         return torch.load(self._path(step), map_location="cpu", weights_only=True)
 

@@ -3,7 +3,7 @@
 Sparse quantization into a voxel grid, with the training-time rigid
 augmentation of the reference's voxelizer.py:11-132 (a random rotation
 about each axis in a shuffled order, then a scale) at the ScanNet
-loader's bounds. Dedup uses exact int64 bit-packing of the integer
+loader's bounds, and the optional clip box with its translation draws. Dedup uses exact int64 bit-packing of the integer
 coordinates.
 """
 
@@ -59,11 +59,34 @@ class Voxelizer:
     """Quantization to a voxel grid of `voxel_size`; with `use_augmentation`,
     a random rotation and scale first, drawn from the RandomState a call
     passes in the JAX package's order: the three rotation angles, their
-    shuffle, the scale. No clip box: the loader passes none."""
+    shuffle, the scale.
 
-    def __init__(self, voxel_size: float = 0.05, use_augmentation: bool = False):
+    `clip_bound` ((lo, hi) per axis, around the points' box centre or a
+    given `center`) keeps only the points inside the box, first, unless
+    that would keep none; with augmentation and
+    `translation_augmentation_ratio_bound` the centre moves by a drawn
+    fraction of the box's size on each axis, drawn before the rotations. No
+    loader passes a clip box (the JAX loader passes None)."""
+
+    def __init__(self, voxel_size: float = 0.05, use_augmentation: bool = False,
+                 clip_bound=None, translation_augmentation_ratio_bound=None):
         self.voxel_size = voxel_size
         self.use_augmentation = use_augmentation
+        self.clip_bound = clip_bound
+        self.translation_augmentation_ratio_bound = translation_augmentation_ratio_bound
+
+    def _clip(self, coords: np.ndarray, center=None, trans_aug_ratio=None) -> np.ndarray:
+        """(N,) bool: the points inside the clip box."""
+        bound_min = coords.min(0).astype(float)
+        bound_size = coords.max(0).astype(float) - bound_min
+        if center is None:
+            center = bound_min + bound_size * 0.5
+        if trans_aug_ratio is not None:
+            center = center + trans_aug_ratio * bound_size
+        keep = np.ones(len(coords), bool)
+        for ax, (lo, hi) in enumerate(self.clip_bound):
+            keep &= (coords[:, ax] >= lo + center[ax]) & (coords[:, ax] < hi + center[ax])
+        return keep
 
     def _rigid(self, rng: np.random.RandomState) -> np.ndarray:
         """The 4x4 map from points to voxel coords: the scale, and with
@@ -85,7 +108,7 @@ class Voxelizer:
                          scale * rng.uniform(*SCALE_AUGMENTATION_BOUND))
         return rotation_matrix @ voxelization_matrix
 
-    def voxelize(self, coords, feats, labels, rng: np.random.RandomState = None):
+    def voxelize(self, coords, feats, labels, rng: np.random.RandomState = None, center=None):
         """Returns (voxel_coords int, voxel_feats, voxel_labels,
         inds_reconstruct): the reference voxelize contract
         (voxelizer.py:81-132). With augmentation, draws from `rng`."""
@@ -93,6 +116,15 @@ class Voxelizer:
             raise ValueError("coords must be (N, 3) and match feats")
         if self.use_augmentation and rng is None:
             raise ValueError("an augmenting voxelizer needs the call's RandomState")
+        if self.clip_bound is not None:
+            trans_aug_ratio = np.zeros(3)
+            if self.use_augmentation and self.translation_augmentation_ratio_bound is not None:
+                for ax, bound in enumerate(self.translation_augmentation_ratio_bound):
+                    trans_aug_ratio[ax] = rng.uniform(*bound)
+            keep = self._clip(coords, center, trans_aug_ratio)
+            if keep.sum():
+                coords, feats = coords[keep], feats[keep]
+                labels = labels[keep] if labels is not None else None
         rigid = self._rigid(rng)
         homo = np.hstack([coords, np.ones((len(coords), 1), coords.dtype)])
         coords_aug = np.floor(homo @ rigid.T[:, :3])

@@ -12,8 +12,9 @@ from their nearest seen one (KD-tree), and keeps the base/novel IoU meters.
 `XMASK3D_FUSED_GN=1` runs the VAE resblocks' GroupNorm -> SiLU -> conv3x3
 stages on kernel K4. `--ckpt DIR` serves the newest checkpoint the trainer
 wrote there, `--converted NPZ` the released weights converted by
-`python -m xmask3d_tpu_torch.tools.convert_checkpoints`, `--scene_reuse`
-(default from `XMASK3D_SCENE_REUSE`) runs the 3D branch once a scene
+`python -m xmask3d_tpu_torch.tools.convert_checkpoints`, `--bf16_params`
+(default from `XMASK3D_BF16_PARAMS`) casts fp32 weights to bf16 values,
+`--scene_reuse` (default from `XMASK3D_SCENE_REUSE`) runs the 3D branch once a scene
 (`engine/scene_reuse.py`) and `--save_ply DIR` writes each scene's predicted
 and ground-truth labels as coloured point clouds. On the GPU every view's forward and routing is one CUDA graph, captured at
 the first view and replayed for the others (`engine/graphs.py`);
@@ -84,6 +85,11 @@ def get_parser():
                    default=os.environ.get("XMASK3D_SCENE_REUSE", "0") == "1",
                    help="voxelize each scene once and reuse its 3D features across views "
                         "(engine/scene_reuse.py; departs from the reference protocol)")
+    p.add_argument("--bf16_params", action="store_true",
+                   default=os.environ.get("XMASK3D_BF16_PARAMS", "0") == "1",
+                   help="serve with bf16 weights, the BatchNorm statistics kept fp32 "
+                        "(`cast_params_bf16`; the port already stores the parameters in "
+                        "the compute dtype, so under bf16 compute this changes nothing)")
     p.add_argument("opts", nargs="*")
     return p
 
@@ -106,13 +112,33 @@ def make_infer_step(model, cfg):
     return GraphStep(infer_body, next(model.parameters()).device), route_2d
 
 
+def cast_params_bf16(model) -> int:
+    """Serving-mode weight cast, the JAX CLI's `--bf16_params`: every fp32
+    parameter takes bf16 values; the BatchNorm running statistics (buffers)
+    stay as they are. Returns the number of parameters cast.
+
+    `build_model` stores the parameters in the compute dtype, so under bf16
+    compute (every shipped config) there is no fp32 parameter and nothing
+    changes. Under `compute_dtype float32` the parameters keep their fp32
+    storage, since the port's layers compute in their parameters' dtype, and
+    take the bf16-rounded values that the JAX model reads after its cast."""
+    n = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.copy_(p.to(torch.bfloat16))
+                n += 1
+    return n
+
+
 def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = False,
-                        ckpt: str = "", converted: str = "", seed: int = 0):
+                        ckpt: str = "", converted: str = "", seed: int = 0,
+                        bf16_params: bool = False):
     """The eval model on `device` with weights drawn from `seed`, then the
     newest trainer checkpoint under `ckpt` (its masters in the compute dtype and
     its BatchNorm statistics; the frozen towers keep their built weights,
     as the trainer's restore keeps them) and the converted npz
-    `converted`, in that order."""
+    `converted`, in that order; with `bf16_params`, `cast_params_bf16` last."""
     dev = resolve_device(device)
     model = build_model(cfg, tiny=tiny, seed=seed, device=dev, fused_gn=fused_gn)
     if ckpt:
@@ -126,6 +152,8 @@ def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = F
         applied_p, applied_s = apply_converted(model, converted)
         logger.info(f"loaded {len(applied_p)} params + {len(applied_s)} batch_stats "
                     f"from {converted}")
+    if bf16_params:
+        logger.info(f"bf16 weights: {cast_params_bf16(model)} fp32 parameters cast")
     return model
 
 
@@ -286,7 +314,8 @@ def main(argv=None, device=None):
         scenes, n = _scannet_scenes(cfg, caps, args)
     fused_gn = os.environ.get("XMASK3D_FUSED_GN", "0") == "1"
     model = build_serving_model(cfg, tiny=args.tiny, device=dev, fused_gn=fused_gn,
-                                ckpt=args.ckpt, converted=args.converted)
+                                ckpt=args.ckpt, converted=args.converted,
+                                bf16_params=args.bf16_params)
     statics = build_statics(model, cfg, device=dev)
     infer_step, route_2d = make_infer_step(model, cfg)
 

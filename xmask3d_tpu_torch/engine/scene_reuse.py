@@ -34,11 +34,12 @@ from xmask3d_tpu_torch.engine.serve import resolve_vote_ids
 from xmask3d_tpu_torch.ops.sparse_conv import build_hierarchy, stack_hierarchies
 
 
-def scene_caps_from_view_caps(caps: Capacities) -> Capacities:
-    """Whole-scene capacities: a scene holds four views' worth of points."""
+def scene_caps_from_view_caps(caps: Capacities, factor: int = 4) -> Capacities:
+    """Whole-scene capacities: a scene holds `factor` views' worth of
+    points (the bench's BENCH_SCENE_FACTOR)."""
     return Capacities(
-        max_points=caps.max_points * 4,
-        max_voxels=caps.max_voxels * 4,
+        max_points=caps.max_points * factor,
+        max_voxels=caps.max_voxels * factor,
         max_targets=caps.max_targets,
         num_levels=caps.num_levels,
         level_divisors=caps.level_divisors,

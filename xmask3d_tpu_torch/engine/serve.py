@@ -50,15 +50,20 @@ def resolve_vote_ids(batch: Dict[str, Any], scene3d: Optional[Dict[str, torch.Te
         return ids, valid, None
     scene_rows = scene3d["pred_3d"].shape[1]
     gids = ids.clamp(0, scene_rows - 1).long()
-    pred_3d = scene3d["pred_3d"]
+    b = ids.shape[0]  # B views of the one scene: its tables serve every view
+
+    def views(t):
+        return t.expand(b, *t.shape[1:])
+
+    pred_3d = views(scene3d["pred_3d"])
     precomp = {
-        "imp_condition": scene3d["imp_condition"],
+        "imp_condition": views(scene3d["imp_condition"]),
         "pred_3d": torch.gather(pred_3d, 1, gids[..., None].expand(-1, -1, pred_3d.shape[-1])),
-        "binary_scores": torch.gather(scene3d["binary_scores"], 1, gids),
+        "binary_scores": torch.gather(views(scene3d["binary_scores"]), 1, gids),
     }
     valid = valid & (ids >= 0) & (ids < scene_rows)
     if "point_valid" in scene3d:
-        valid = valid & torch.gather(scene3d["point_valid"], 1, gids)
+        valid = valid & torch.gather(views(scene3d["point_valid"]), 1, gids)
     return ids, valid, precomp
 
 

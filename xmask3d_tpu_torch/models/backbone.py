@@ -85,3 +85,25 @@ class FeatureExtractorBackbone(nn.Module):
                 acc = p if acc is None else acc + p
             out[name] = acc
         return out
+
+    def slide_forward(self, image, prefix, uncond_tokens, crop: int = 512
+                      ) -> Dict[str, torch.Tensor]:
+        """Sliding-window forward for images larger than the training crop
+        (reference feature_extractor.py:169-226): each crop x crop window
+        goes through `forward` and its maps are placed into full-size ones.
+        The window grid does not overlap (stride = crop), so H and W must
+        be multiples of crop, as in the JAX package."""
+        b, h, w, _ = image.shape
+        if h % crop or w % crop:
+            raise ValueError(f"image {h}x{w} is not a multiple of the crop {crop}: pad it")
+        outs: Dict[str, torch.Tensor] = {}
+        for yi in range(h // crop):
+            for xi in range(w // crop):
+                window = image[:, yi * crop:(yi + 1) * crop, xi * crop:(xi + 1) * crop]
+                for k, v in self(window, prefix, uncond_tokens).items():
+                    s = crop // v.shape[1]
+                    if k not in outs:
+                        outs[k] = v.new_zeros((b, h // s, w // s, v.shape[-1]))
+                    outs[k][:, yi * crop // s:(yi + 1) * crop // s,
+                            xi * crop // s:(xi + 1) * crop // s] = v
+        return outs

@@ -162,6 +162,9 @@ class CLIPVisionTower(nn.Module):
         self.ln_post = LayerNorm(c.width)
         self.proj = nn.Parameter(torch.randn(c.width, c.embed_dim) * c.width ** -0.5)
 
+    def grid_size(self) -> int:
+        return self.cfg.image_size // self.cfg.patch_size
+
     def forward(self, image, num_mask_tokens: int = 0, blocked=None):
         """image (B, S, S, 3) normalised NHWC -> projected tokens
         (B, num_mask_tokens + 1 + N, E); mask tokens are replicated cls
@@ -214,6 +217,20 @@ class CLIP(nn.Module):
 
     def embed_text(self, tokens: torch.Tensor):
         return self.text(tokens)
+
+    def embed_image(self, image: torch.Tensor, normalize: bool = False):
+        """image (B, S, S, 3) in 0..1 at the tower's size -> (the cls
+        token's embedding (B, E), the patch tokens' (B, N, E)); with
+        `normalize` the embedding has unit L2 norm."""
+        toks = self.visual(self.preprocess(image))
+        image_embed, encodings = toks[:, 0], toks[:, 1:]
+        if normalize:
+            image_embed = image_embed / torch.linalg.vector_norm(image_embed, dim=-1,
+                                                                 keepdim=True)
+        return image_embed, encodings
+
+    def clamped_logit_scale(self, max_scale: float = 100.0) -> torch.Tensor:
+        return torch.clamp(torch.exp(self.logit_scale), max=max_scale)
 
     def encode_image_with_mask(self, image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """image (B, S, S, 3) in 0..1, mask (B, Q, S, S) logits -> (B, Q, E)."""

@@ -8,6 +8,7 @@ cuDNN through a channels-last NCHW view, so no layout copy is made.
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import torch
@@ -36,6 +37,25 @@ class RematBlock(nn.Module):
                 or any(p.requires_grad for p in self.parameters())):
             return checkpoint(self.body, *args, use_reentrant=False)
         return self.body(*args)
+
+
+_FORCE_INT8 = None  # test and tooling override of XMASK3D_INT8
+
+
+def set_int8(value) -> None:
+    """Override `int8_enabled()` (True / False), or None to defer to
+    `XMASK3D_INT8`."""
+    global _FORCE_INT8
+    _FORCE_INT8 = value
+
+
+def int8_enabled() -> bool:
+    """XMASK3D_INT8=1: `ops/int8_quant.py`'s QDense / QConv run W8A8. As in
+    the JAX package no model is built of them, so the switch changes
+    nothing the entry points run."""
+    if _FORCE_INT8 is not None:
+        return bool(_FORCE_INT8)
+    return os.environ.get("XMASK3D_INT8", "0") == "1"
 
 
 def set_remat(module: nn.Module, on: bool) -> int:

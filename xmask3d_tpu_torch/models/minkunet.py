@@ -3,22 +3,38 @@
 Counterpart of `xmask3d_tpu/models/minkunet.py` (eval path). Tensors are
 batch-padded (B, V_l, C) with validity masks from the hierarchy. Returns
 (bottleneck stride-16 features, stride-1 output features).
+
+With `XMASK3D_BRICK=1` and a hierarchy built with brick metadata, each
+stage of residual blocks and the k5 stem run in the brick-dense layout
+(`ops/brick_conv.py`): one scatter in and one gather out a stage, every
+k3 / k5 conv inside a dense conv over halo'd bricks. Otherwise, and for
+the strided and transposed convs always, the convs take their kernel maps
+(K1).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.ops.brick_conv import brick_conv, from_brick, level_brick, to_brick
 from xmask3d_tpu_torch.ops.sparse_conv import (
     SparseHierarchy,
     sparse_conv,
     sparse_conv_transpose,
 )
 from xmask3d_tpu_torch.parallel.mesh import all_reduce_with_grad
+
+
+def bricks_enabled() -> bool:
+    """XMASK3D_BRICK=1 runs the 3D UNets' k3 / k5 convs brick-dense where
+    the hierarchy carries brick metadata (off by default, as in the JAX
+    package; the fused stem is off under it)."""
+    return os.environ.get("XMASK3D_BRICK", "0") == "1"
 
 
 def _zero_invalid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -77,13 +93,18 @@ class SparseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         nn.init.normal_(self.kernel, std=(2.0 / (num_offsets * out_ch)) ** 0.5)
 
-    def forward(self, x, kmap: Optional[torch.Tensor], out_valid=None):
+    def forward(self, x, kmap: Optional[torch.Tensor], out_valid=None, brick=None):
+        """`brick`: the level's brick metadata when x is in the brick-dense
+        layout (then `out_valid` is its slot validity); a k3 / k5 conv then
+        runs as `brick_conv`."""
         w = self.kernel.to(x.dtype)
         if kmap is None:  # 1x1 conv == plain matmul on the same coord map
             out = x @ w[0]
             if self.bias is not None:
                 out = out + self.bias.to(out.dtype)
             return out if out_valid is None else _zero_invalid(out, out_valid)
+        if brick is not None and w.shape[0] in (27, 125):
+            return brick_conv(x, w, brick[0], slot_valid=out_valid, bias=self.bias)
         return sparse_conv(x, w, kmap, bias=self.bias, out_valid=out_valid)
 
 
@@ -112,9 +133,9 @@ class BasicBlock(nn.Module):
             self.downsample_conv = SparseConv(in_ch, planes, 1)
             self.downsample_norm = MaskedBatchNorm(planes)
 
-    def forward(self, x, kmap3, valid):
-        out = F.relu(self.norm1(self.conv1(x, kmap3, out_valid=valid), valid))
-        out = self.norm2(self.conv2(out, kmap3, out_valid=valid), valid)
+    def forward(self, x, kmap3, valid, brick=None):
+        out = F.relu(self.norm1(self.conv1(x, kmap3, out_valid=valid, brick=brick), valid))
+        out = self.norm2(self.conv2(out, kmap3, out_valid=valid, brick=brick), valid)
         residual = x
         if hasattr(self, "downsample_conv"):
             residual = self.downsample_norm(self.downsample_conv(x, None), valid)
@@ -166,16 +187,32 @@ class MinkUNet(nn.Module):
         self.final = SparseConv(ch, out_channels, 1)
 
     def _stage(self, x, n_blocks, level, name):
+        """A run of residual blocks at one level; brick-dense (one scatter
+        in, one gather out) when bricks are on and the level has them."""
+        brick = level_brick(level) if bricks_enabled() else None
+        valid = level.valid
+        if brick is not None:
+            x, valid = to_brick(x, brick[1], brick[2].shape[-1]), brick[2]
         for i in range(n_blocks):
-            x = getattr(self, f"{name}_{i}")(x, level.kmap3, level.valid)
+            x = getattr(self, f"{name}_{i}")(x, level.kmap3, valid, brick=brick)
+        if brick is not None:
+            x = _zero_invalid(from_brick(x, brick[1]), level.valid)
         return x
 
     def forward(self, feats: torch.Tensor, h: SparseHierarchy,
                 stem_conv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         lv = h.levels
-        if stem_conv is None:
-            stem_conv = self.conv0(feats, h.kmap5, out_valid=lv[0].valid)
-        x = F.relu(self.bn0(stem_conv, lv[0].valid))
+        brick0 = level_brick(lv[0]) if bricks_enabled() else None
+        if stem_conv is None and brick0 is not None:
+            # the k5 stem brick-dense (r = 2: 8^3 halo'd bricks)
+            _, sor0, sv0 = brick0
+            x = self.conv0(to_brick(feats, sor0, sv0.shape[-1]), h.kmap5, out_valid=sv0,
+                           brick=brick0)
+            x = _zero_invalid(from_brick(F.relu(self.bn0(x, sv0)), sor0), lv[0].valid)
+        else:
+            if stem_conv is None:
+                stem_conv = self.conv0(feats, h.kmap5, out_valid=lv[0].valid)
+            x = F.relu(self.bn0(stem_conv, lv[0].valid))
         skips = [x]
         for s in range(4):
             x = getattr(self, f"conv{s + 1}")(x, h.down[s], out_valid=lv[s + 1].valid)

@@ -1,7 +1,8 @@
 """XMask3D top-level model: one view's eval forward and the training losses.
 
 Counterpart of `xmask3d_tpu/models/xmask3d.py`: the two sparse 3D UNets
-(with their k5 stems fused into one conv), the SD feature backbone
+(with their k5 stems fused into one conv, except under `XMASK3D_BRICK=1`,
+`ops/brick_conv.py`), the SD feature backbone
 conditioned on the 3D global embedding, the MSDeformAttn pixel decoder, the
 ODISE mask decoder, MaskCLIP, binary base/novel routing, the panoptic filter
 and the 2D -> 3D paint-and-fuse; `train_forward` adds the matcher and the
@@ -32,7 +33,7 @@ from xmask3d_tpu_torch.models.clip import build_clip
 from xmask3d_tpu_torch.models.layers import resize, set_remat
 from xmask3d_tpu_torch.models.ldm_extractor import LDM_SD_V1, LdmConfig
 from xmask3d_tpu_torch.models.mask_decoder import CategoryEmbed, ODISEMaskedTransformerDecoder
-from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, mink_unet
+from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, bricks_enabled, mink_unet
 from xmask3d_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device
 from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
@@ -155,11 +156,16 @@ class XMask3D(nn.Module):
             h = build_hierarchy_on_device(batch["voxel_coords"], batch["voxel_num"], caps)
         dt = self.cfg.dtype
         feats = batch["voxel_feats"].to(dt)
-        w34 = self.pc_decoder.MinkUNet_0.conv0.kernel
-        w14 = self.pc_binary_head.MinkUNet_0.conv0.kernel
-        stem = sparse_conv(feats, torch.cat([w34, w14], dim=-1).to(dt), h.kmap5,
-                           out_valid=h.levels[0].valid)
-        stem34, stem14 = stem.split([w34.shape[-1], w14.shape[-1]], dim=-1)
+        if bricks_enabled():
+            # the brick-dense layout has its own stem in each UNet, as in
+            # the JAX package, whose fused stem is off under XMASK3D_BRICK
+            stem34 = stem14 = None
+        else:
+            w34 = self.pc_decoder.MinkUNet_0.conv0.kernel
+            w14 = self.pc_binary_head.MinkUNet_0.conv0.kernel
+            stem = sparse_conv(feats, torch.cat([w34, w14], dim=-1).to(dt), h.kmap5,
+                               out_valid=h.levels[0].valid)
+            stem34, stem14 = stem.split([w34.shape[-1], w14.shape[-1]], dim=-1)
         implicit, pred_3d_vox = self.pc_decoder(feats, h, stem_conv=stem34)
         neg = torch.finfo(implicit.dtype).min
         bneck_valid = h.levels[-1].valid

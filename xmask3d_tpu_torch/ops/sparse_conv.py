@@ -29,12 +29,22 @@ from xmask3d_tpu_torch.ops import _build
 
 @dataclasses.dataclass
 class SparseLevel:
-    """One stride level of the voxel hierarchy (static capacity)."""
+    """One stride level of the voxel hierarchy (static capacity).
+
+    The optional brick fields describe the level's 4x4x4 brick-dense layout
+    (`ops/brick_conv.py`, built with `build_hierarchy(..., brick_divisor)`):
+    `slot_of_rank[b, v] = brick * 64 + slot` (-1 for padding and for voxels
+    whose brick overflowed the brick capacity NB), `nbr27[b, o, n]` the
+    brick index of brick n's o-th 3^3 neighbour (-1 absent), `slot_valid`
+    the occupied slots of the (NB * 64)-row layout."""
 
     coords: torch.Tensor  # (B, V, 3) int32, zero-padded
     valid: torch.Tensor  # (B, V) bool
     kmap3: torch.Tensor  # (B, 27, V) int32
     num: torch.Tensor  # (B,) int32
+    nbr27: Optional[torch.Tensor] = None  # (B, 27, NB) int32
+    slot_of_rank: Optional[torch.Tensor] = None  # (B, V) int32
+    slot_valid: Optional[torch.Tensor] = None  # (B, NB * 64) bool
 
 
 @dataclasses.dataclass
@@ -64,6 +74,8 @@ class HostHierarchy:
     up_parent: List[np.ndarray]
     up_octant: List[np.ndarray]
     kmap5: np.ndarray
+    # per level (nbr27, slot_of_rank, slot_valid), when built with bricks
+    bricks: Optional[List[Tuple[np.ndarray, np.ndarray, np.ndarray]]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -116,12 +128,50 @@ def _build_kmap(out_coords, in_sorted_keys, in_order, offsets, capacity) -> np.n
     return kmap
 
 
+def brick_metadata(coords: np.ndarray, stride: int, nb_cap: int, v_cap: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One level's 4x4x4 brick layout (see `SparseLevel`): (nbr27 (27,
+    nb_cap), slot_of_rank (v_cap,), slot_valid (nb_cap * 64,)). Bricks are
+    kept in packed-key order; bricks beyond nb_cap are dropped and their
+    voxels get slot -1, with a warning that counts them (the brick path
+    zeroes them for the whole stage)."""
+    n = len(coords)
+    cu = coords.astype(np.int64) // stride
+    bid = cu // 4
+    slot = cu - bid * 4
+    slot_id = slot[:, 0] * 16 + slot[:, 1] * 4 + slot[:, 2]
+    ukeys, first, binv = np.unique(_pack(bid.astype(np.int32)), return_index=True,
+                                   return_inverse=True)
+    binv = binv.reshape(-1)
+    nb = min(len(ukeys), nb_cap)
+    slot_of_rank = np.full((v_cap,), -1, np.int32)
+    keep = binv < nb_cap
+    dropped = int(n - keep.sum())
+    if dropped:
+        import warnings
+
+        warnings.warn(f"brick_metadata: {dropped}/{n} voxels overflow nb_cap={nb_cap} bricks "
+                      "and will be zeroed in the brick conv path (raise brick_divisor's nb_cap)",
+                      RuntimeWarning, stacklevel=2)
+    slot_of_rank[:n][keep] = (binv[keep] * 64 + slot_id[keep]).astype(np.int32)
+    ubid = bid[first[:nb]]
+    order = np.arange(len(ukeys), dtype=np.int32)
+    nbr27 = np.full((27, nb_cap), -1, np.int32)
+    for o, off in enumerate(_offsets(3, 1)):
+        hit = _lookup(ukeys, order, _pack((ubid + off[None, :]).astype(np.int32)))
+        nbr27[o, :nb] = np.where(hit < nb_cap, hit, -1)
+    slot_valid = np.zeros((nb_cap * 64,), bool)
+    slot_valid[slot_of_rank[:n][keep]] = True
+    return nbr27, slot_of_rank, slot_valid
+
+
 def build_hierarchy(
     coords: np.ndarray,
     capacities: Sequence[int],
     num_levels: int = 5,
     stem_kernel: int = 5,
     builder: str = "native",
+    brick_divisor: int = 0,
 ) -> HostHierarchy:
     """Full stride hierarchy + kernel maps for one voxelized sample.
 
@@ -130,7 +180,10 @@ def build_hierarchy(
     capacity are dropped. builder: "native", the C++ hash-table builder
     (`data/native.py`; it raises if it cannot be built), or "numpy", the
     sorted-key builder it is held against. Both give the same maps bit for
-    bit, as the JAX package's `build_hierarchy` does."""
+    bit, as the JAX package's `build_hierarchy` does. brick_divisor > 0 also
+    builds each level's brick metadata (`brick_metadata`, numpy, with
+    nb_cap = max(16, capacity // brick_divisor)) for the opt-in brick conv
+    path; the default 0 builds none, as the device builder builds none."""
     if len(capacities) != num_levels:
         raise ValueError("one capacity per level")
     if builder not in ("native", "numpy"):
@@ -173,9 +226,11 @@ def build_hierarchy(
             oo[:n] = (oct3[:, 0] * 4 + oct3[:, 1] * 2 + oct3[:, 2]).astype(np.int32)
             return pp, oo
 
-    out = HostHierarchy([], [], [], [], [], [], [], None)
+    out = HostHierarchy([], [], [], [], [], [], [], None, [] if brick_divisor else None)
     for lv, c in enumerate(level_coords):
         cap, n, stride = capacities[lv], len(c), 2**lv
+        if brick_divisor:
+            out.bricks.append(brick_metadata(c, stride, max(16, cap // brick_divisor), cap))
         out.kmap3.append(make_kmap(lv, c, _offsets(3, stride), cap))
         coords_pad = np.zeros((cap, 3), dtype=np.int32)
         coords_pad[:n] = c
@@ -203,12 +258,22 @@ def stack_hierarchies(hs: Sequence[HostHierarchy], device="cpu") -> SparseHierar
         return torch.from_numpy(np.stack(arrs, axis=0)).to(device)
 
     n_lv = len(hs[0].coords)
+    if len({h.bricks is None for h in hs}) != 1:
+        raise ValueError("stack_hierarchies: samples built with and without bricks")
+
+    def bricks(i):
+        if hs[0].bricks is None:
+            return {}
+        return {k: st([h.bricks[i][j] for h in hs])
+                for j, k in enumerate(("nbr27", "slot_of_rank", "slot_valid"))}
+
     levels = tuple(
         SparseLevel(
             coords=st([h.coords[i] for h in hs]),
             valid=st([h.valid[i] for h in hs]),
             kmap3=st([h.kmap3[i] for h in hs]),
             num=st([np.int32(h.num[i]) for h in hs]),
+            **bricks(i),
         )
         for i in range(n_lv)
     )

@@ -22,7 +22,7 @@ of one model group are consecutive. Once a mesh is made, the functions
 above work over its data group: the ranks of one model group hold the same
 rows, so a sum over the world would count them `model` times. The model
 group is what `parallel/tensor.py`'s layers reduce over. Activation
-sharding (`shard_spatial`) is not here (ROADMAP A 6).
+sharding (`shard_spatial`) is not here (ROADMAP A 3).
 """
 
 from __future__ import annotations

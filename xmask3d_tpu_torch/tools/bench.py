@@ -27,9 +27,16 @@ Modes, by environment variable (the JAX bench's names):
   next starts and prints its time.
 - BENCH_DEVICE_HIER=1: views ship voxel coords and the hierarchy is built
   on the device, inside the captured view (`ops/hierarchy_device.py`).
-- BENCH_SCENE_REUSE=1: one 3D pass a scene at 4x the view's capacities,
-  the views' 2D passes on its outputs (`engine/scene_reuse.py`); metric
-  `scene_inference_throughput_reuse`.
+- BENCH_VIEW_BATCH=B (default 1): B views a forward, drawn together by
+  `synthetic_batch(B, ...)`; a scene takes max(1, 30 // B) steps, the
+  distinct views are staged B at a time (BENCH_DISTINCT_VIEWS steps of B),
+  and the view body is captured at B views. Every mode takes it.
+- BENCH_SCENE_REUSE=1: one 3D pass a scene at BENCH_SCENE_FACTOR (default
+  4) times the view's capacities, the views' 2D passes on its outputs
+  (`engine/scene_reuse.py`); metric `scene_inference_throughput_reuse`.
+- BENCH_BF16_PARAMS=1 (default): the serving weight cast of
+  `engine/infer_cli.py` `cast_params_bf16`. The port stores the parameters
+  in the compute dtype (bf16), so it casts none; 0 skips it.
 - BENCH_INCLUDE_HOST=1: every view is built on the host inside the timed
   window (`synthetic_batch` at seeds 1000 on: voxelization, images, the
   native kernel-map build), by BENCH_HOST_WORKERS threads (default 4,
@@ -63,6 +70,7 @@ from xmask3d_tpu_torch.data.prefetch import parallel_map_iterator, to_device
 from xmask3d_tpu_torch.data.synthetic import synthetic_batch, synthetic_scene
 from xmask3d_tpu_torch.device import resolve_device
 from xmask3d_tpu_torch.engine.builder import build_model, build_statics
+from xmask3d_tpu_torch.engine.infer_cli import cast_params_bf16
 from xmask3d_tpu_torch.engine.scene_reuse import (
     make_scene_3d_step,
     scene_3d_batch,
@@ -107,18 +115,25 @@ def main(device=None, num_scenes: int = NUM_SCENES, views_per_scene: int = VIEWS
     scene_reuse = _flag("BENCH_SCENE_REUSE", "0")
     scan_views = _flag("BENCH_SCAN_VIEWS", "1")
     include_host = _flag("BENCH_INCLUDE_HOST", "0")
+    view_batch = int(os.environ.get("BENCH_VIEW_BATCH", "1"))
+    if view_batch < 1:
+        raise ValueError(f"BENCH_VIEW_BATCH must be >= 1, got {view_batch}")
+    steps_per_scene = max(1, views_per_scene // view_batch)
     view_kw = dict(num_points=npts, image_size=(image, image), mask_shape=tuple(cfg.mask_shape),
                    context_length=ctx, vocab_size=vocab, device_hierarchy=device_hier)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     model = build_model(cfg, tiny=tiny, seed=0, device=dev)
+    if _flag("BENCH_BF16_PARAMS", "1"):
+        print(f"# bf16 params: {cast_params_bf16(model)} fp32 parameters cast", flush=True)
     statics = build_statics(model, cfg, device=dev)
     n_classes = model.cfg.num_test_classes
     scan = make_scene_scan_step(model, cfg, scene_reuse=scene_reuse, device=dev)
     view_step = scan.step  # the captured view body, shared with the per-view modes
     scene = {}
     if scene_reuse:
-        scene_caps = scene_caps_from_view_caps(caps)
+        scene_caps = scene_caps_from_view_caps(
+            caps, factor=int(os.environ.get("BENCH_SCENE_FACTOR", "4")))
         sc = synthetic_scene(caps, seed=7, num_points=min(scene_caps.max_points, 8 * npts),
                              num_views=1, num_classes=cfg.classes, image_size=(image, image),
                              mask_shape=tuple(cfg.mask_shape), context_length=ctx,
@@ -141,14 +156,14 @@ def main(device=None, num_scenes: int = NUM_SCENES, views_per_scene: int = VIEWS
         return view_step(batch, statics, *votes, *extra())
 
     if include_host:
-        line, votes = _measure_host(dev, caps, view_kw, num_scenes, views_per_scene,
-                                    scene_begin, step_view, sync)
+        line, votes = _measure_host(dev, caps, view_kw, num_scenes, steps_per_scene,
+                                    view_batch, scene_begin, step_view, sync)
     else:
         n_distinct = int(os.environ.get("BENCH_DISTINCT_VIEWS", "6"))
-        views = [synthetic_batch(1, caps, seed=100 + v, device=dev, **view_kw)
-                 for v in range(min(views_per_scene, n_distinct))]
+        views = [synthetic_batch(view_batch, caps, seed=100 + v, device=dev, **view_kw)
+                 for v in range(0, min(views_per_scene, n_distinct * view_batch), view_batch)]
         stacked = stack_views(views) if scan_views else None
-        idxseq = torch.arange(views_per_scene, dtype=torch.int32) % len(views)
+        idxseq = torch.arange(steps_per_scene, dtype=torch.int32) % len(views)
 
         def run_scene():
             votes = scene_begin()
@@ -201,23 +216,25 @@ def _measure(run_scene, num_scenes: int, pipelined: bool, sync) -> Tuple[float, 
     return num_scenes / dt, votes[0].cpu().numpy()
 
 
-def _measure_host(dev, caps, view_kw, num_scenes: int, views_per_scene: int, scene_begin,
-                  step_view, sync) -> Tuple[Dict, np.ndarray]:
-    """BENCH_INCLUDE_HOST: each view built by the worker pool inside the
-    timed window, pinned and copied in here, then its captured step."""
+def _measure_host(dev, caps, view_kw, num_scenes: int, steps_per_scene: int, view_batch: int,
+                  scene_begin, step_view, sync) -> Tuple[Dict, np.ndarray]:
+    """BENCH_INCLUDE_HOST: each step's `view_batch` views built by the
+    worker pool inside the timed window, pinned and copied in here, then
+    its captured step."""
     workers = int(os.environ.get("BENCH_HOST_WORKERS", "4"))
     # the view body is captured before the pool starts
-    votes = step_view(synthetic_batch(1, caps, seed=0, device=dev, **view_kw), scene_begin())
+    votes = step_view(synthetic_batch(view_batch, caps, seed=0, device=dev, **view_kw),
+                      scene_begin())
     votes[0].argmax(1).cpu()
 
     def build_view(seed: int):
-        return synthetic_batch(1, caps, seed=seed, device="cpu", **view_kw)
+        return synthetic_batch(view_batch, caps, seed=seed, device="cpu", **view_kw)
 
     built = parallel_map_iterator(build_view, itertools.count(1000), workers)
 
     def host_scene():
         votes = scene_begin()
-        for _ in range(views_per_scene):
+        for _ in range(steps_per_scene):
             votes = step_view(to_device(next(built), dev), votes)
         return votes
 

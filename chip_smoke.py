@@ -62,7 +62,8 @@ Phases, each of which raises on failure:
      copies in under either route; after the main path's outputs,
      `brick`: one view's two 3D UNets through the brick-dense path
      (`XMASK3D_BRICK=1`, `brick_divisor` 8, no voxel dropped) against K1,
-     held in fp32, the bf16 gap logged, each path's device ms; and `int8`:
+     held in fp32, the bf16 gap logged, each path's device ms and the brick
+     path's bound; and `int8`:
      the W8A8 op at a pixel-decoder and a VAE shape, int8 operands, scales
      and int32 products equal to the CPU's, fp32 outputs within 1 ulp,
      device ms beside the bf16 library call;
@@ -145,6 +146,16 @@ Phases, each of which raises on failure:
      and parameter and peak bytes a rank, one validation batch equal to
      one process's, and every K2 call of the step at the rank's heads held
      against its plain version and timed per shape;
+     `act_shard` (`act_shard_phase`): activation sharding through
+     `parallel/spatial.py`, the SD UNet and VAE in row bands: two ranks on
+     the card over gloo on a (1, 2) mesh at batch 2, whole parameters and
+     then with `shard_params` (sequence parallelism): each fp32 step held
+     to the one process's as `ddp`'s is, bf16 steps for ms and peak bytes a
+     rank beside one process's and `tp`'s, the model group's collectives
+     and their bytes, every K2 call at its band shape held and timed per
+     shape; K4 on row bands: a full-width 512^2 `fused_gn` encode in fp32
+     equal to one process's, every band call of the moments and the conv
+     held against the plain band version, the bf16 calls timed per shape;
   7. the tiny model on the card (fp32, kernels) against the same model on
      the CPU (plain versions), unfused and with `fused_gn`, and one training
      step of it, losses and gradients leaf by leaf.
@@ -415,12 +426,15 @@ def work(name, call, out):
         q, k, v = call
         b, h, tq, d = q.shape
         return nbytes(q, k, v, out), 4 * b * h * tq * k.shape[2] * d
-    if name == "gn_silu_conv":
-        # x and the output once, the norm and conv parameters; a multiply-add
-        # per tap, input and output channel of every output pixel
+    if name in ("gn_silu_conv", "affine_silu_conv"):
+        # x and the output once, the norm (or affine) and conv parameters; a
+        # multiply-add per tap, input and output channel of every output pixel
         x, scale, bias, w, b = call[:5]
         bsz, h, wd, c = x.shape
         return nbytes(x, scale, bias, w, b, out), 2 * bsz * h * wd * w.shape[3] * 9 * c
+    if name == "group_moments":
+        # one read of x; a subtraction and two multiply-adds a value
+        return nbytes(call[0], out), 5 * call[0].numel()
     value, _, loc, aw = call
     b, lq, heads, n_lv, npts, _ = loc.shape
     # four taps, one multiply-add per channel each
@@ -3023,7 +3037,7 @@ def _tp_rank(rank: int, world: int) -> None:
             dist.destroy_process_group()
 
 
-def tp_phase(ref, table, rows) -> None:
+def tp_phase(ref, table, rows) -> dict:
     """Tensor parallelism on the card: two ranks spawned over gloo (NCCL
     refuses two ranks on one card), a (1, 2) mesh, the B15N4 training build
     at full width on the `ddp` phase's batch of two views (`_tp_rank`).
@@ -3036,7 +3050,9 @@ def tp_phase(ref, table, rows) -> None:
     One validation batch's histograms equal to one process's. (d) Every K2 call of the step
     at the rank's head count against its plain version; its per-shape times
     join K2's row of the `kernels` line (`tp_by_shape`). Gloo moves every
-    collective through the host, so the step ms measure that, not NVLink."""
+    collective through the host, so the step ms measure that, not NVLink.
+    Returns the ranks' bf16 step ms and peak bytes (what `act_shard` sets
+    its bands against)."""
     import shutil
 
     import torch
@@ -3104,6 +3120,350 @@ def tp_phase(ref, table, rows) -> None:
     for row in rows:
         if row["name"] == "flash_attention":
             row["tp_by_shape"] = k2[0]["by_shape"]
+    return {"bf16_step_ms": [r["bf16"]["step_ms"] for r in ranks],
+            "bf16_peak_bytes": [r["bf16"]["peak_bytes"] for r in ranks]}
+
+
+# --------------------------------------------------------------------------
+# act_shard: the SD towers' activations in row bands (the mesh's model axis)
+# --------------------------------------------------------------------------
+
+ACT_DIR = os.path.join(ROOT, "_act")
+# K4's band pieces and their plain versions (the kernels line's K4 row)
+K4_BAND = ("group_moments", "affine_silu_conv")
+
+
+def _band_step(model, statics, batch, draws, cfg, mesh, deterministic=False):
+    """`ddp_step` with the SD towers in row bands over `mesh`'s model
+    group."""
+    from xmask3d_tpu_torch.parallel.spatial import activation_sharding
+
+    with activation_sharding(mesh):
+        if deterministic:
+            return _deterministic(ddp_step, model, statics, batch, draws, cfg)
+        return ddp_step(model, statics, batch, draws, cfg)
+
+
+def _timed_band_steps(model, statics, batch, draws, cfg, mesh, table, calls=None) -> dict:
+    """A warm-up step in bands (recording K2's calls into `calls` if given),
+    then one counted and timed: its ms, launches, variants, the model
+    group's collectives and the peak bytes."""
+    import torch
+
+    with recording(calls) if calls is not None else contextlib.nullcontext():
+        _band_step(model, statics, batch, draws, cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted, variants = [], {}
+    reset_launches()
+    with counting_variants(table, variants), \
+            model_collectives(mesh.model_group, counted, sync=False):
+        step = _band_step(model, statics, batch, draws, cfg, mesh)
+    return {"step_ms": step["step_ms"], "metrics": step["metrics"], "launches": launches(),
+            "variants": variants, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "collectives": len(counted), "collective_bytes": sum(b for _, _, b in counted),
+            "by_collective": {n: sum(1 for c in counted if c[0] == n)
+                              for n in ("all_reduce", "all_gather")}}
+
+
+def _whole_grads(step, model, mesh):
+    """The fp32 step's gradients on the host, sharded masters made whole."""
+    from xmask3d_tpu_torch.parallel.tensor import gather_tensor, sharded_tensors
+
+    shards = sharded_tensors(model)
+    step["grads"] = {k: (gather_tensor(v, *shards[k], mesh) if k in shards else v).cpu()
+                     for k, v in step["grads"].items()}
+    step["buffers"] = {k: v.cpu() for k, v in step["buffers"].items()}
+    return step
+
+
+def act_k4_check(mesh, dev, table) -> dict:
+    """(e) K4 on row bands: the full-width `AutoencoderKL.encode` at 512^2
+    with `fused_gn` (seeded weights, every norm's scale and bias moved off
+    its constant), in fp32 in bands against the same encode in one process
+    (latent and taps within the fp32 tolerance); every band call of K4's
+    pieces, fp32 and bf16, against its plain band version on the same
+    inputs (the moments' mean within 1e-6 of max(1, |mean|), M2 within 1e-5
+    relative; the conv within K4's per-call tolerance); the bf16 band
+    encode's launches counted from 0; the bf16 conv calls timed per shape
+    (with their moments) beside the plain band version, the bound and the
+    one-process encode's whole-map K4 calls of the same widths."""
+    import torch
+
+    from xmask3d_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from xmask3d_tpu_torch.ops import gn_conv
+    from xmask3d_tpu_torch.parallel.spatial import activation_sharding
+
+    torch.manual_seed(0)
+    with torch.device(dev):
+        vae = AutoencoderKL(VAEConfig(), fused_gn=True)
+        with torch.no_grad():
+            for p in vae.parameters():
+                if p.ndim == 1:
+                    p.add_(0.1 * torch.randn_like(p))
+        image = torch.rand(1, 512, 512, 3) * 2 - 1
+    vae.eval().requires_grad_(False)
+    report = {"weights_sum": _weights_sum(vae)}
+    fns = {"group_moments": (gn_conv.group_moments, gn_conv.moments_reference),
+           "affine_silu_conv": (gn_conv.affine_silu_conv, gn_conv.affine_silu_conv_reference)}
+    by_dtype = {}
+    for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        vae.to(dtype)
+        x = image.to(dtype)
+        calls = {n: [] for n in (*K4_BAND, "flash_attention")}
+        whole = {"gn_silu_conv": []}
+        with torch.no_grad():
+            with recording(whole) if key == "bf16" else contextlib.nullcontext():
+                one = vae.encode(x)
+            reset_launches()
+            for name in K4_BAND:
+                fns[name][0].launches = 0
+            with recording(calls), activation_sharding(mesh):
+                got = vae.encode(x)
+            torch.cuda.synchronize()
+        counts = dict(launches(), **{n: fns[n][0].launches for n in K4_BAND})
+        gaps = []
+        for g, w in zip([got[0], *got[1]], [one[0], *one[1]]):
+            gaps.append([float((g.float() - w.float()).abs().max()),
+                         TOL[key] * max(1.0, float(w.float().abs().max()))])
+        mom_err = [0.0, 0.0]
+        for c in calls["group_moments"]:
+            k, r = gn_conv.group_moments(*c), gn_conv.moments_reference(*c)
+            mom_err[0] = max(mom_err[0], float(((k[..., 1] - r[..., 1]).abs()
+                                                / r[..., 1].abs().clamp(min=1.0)).max()))
+            mom_err[1] = max(mom_err[1], float(((k[..., 2] - r[..., 2]) / r[..., 2]).abs().max()))
+        err, worst, at, _, outs = max_err(*fns["affine_silu_conv"], calls["affine_silu_conv"],
+                                          TOL[key])
+        entry = {"output_gap_and_tol": gaps, "launches": counts,
+                 "band_calls": {n: len(calls[n]) for n in calls},
+                 "moments_rel_err": mom_err, "conv_max_abs_err": err,
+                 "conv_worst_over_tol": worst, "conv_worst_call": at,
+                 "variants": sorted({gn_conv.variant(c[0], c[3])
+                                     for c in calls["affine_silu_conv"]}),
+                 "shapes": sorted({tuple(c[0].shape) for c in calls["affine_silu_conv"]})}
+        if key == "bf16":
+            groups = {}
+            for c, o in zip(calls["affine_silu_conv"], outs):
+                groups.setdefault((tuple(c[0].shape) + (c[3].shape[3],),
+                                   gn_conv.variant(c[0], c[3])), []).append((c, o))
+            # the one-process encode's whole-map calls of the same widths
+            whole_of = {}
+            for c in with_params("gn_silu_conv", whole["gn_silu_conv"]):
+                whole_of.setdefault((c[0].shape[2], c[0].shape[3], c[3].shape[3]), []).append(c)
+            rows = []
+            for (shape, var), members in groups.items():
+                cs = [c for c, _ in members]
+                timed = [c + (gn_conv.kernel_params(c[3], c[4], c[0].dtype),) for c in cs]
+                b_ms, b_by = bound("affine_silu_conv", cs, [o for _, o in members])
+                ms = time_calls(lambda *a: gn_conv.affine_silu_conv(*a[:5], params=a[5]),
+                                timed, 5)
+                wc = whole_of[shape[2:]]
+                rows.append({"shape": list(shape), "variant": var, "launches": len(cs),
+                             "ms": ms,
+                             "plain_ms": time_calls(gn_conv.affine_silu_conv_reference, cs, 2),
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                             "whole_map_ms_a_call": time_calls(gn_conv.gn_silu_conv, wc, 5)
+                             / len(wc), "band_ms_a_call": ms / len(cs)})
+            mcs = calls["group_moments"]
+            mouts = [gn_conv.group_moments(*c) for c in mcs]
+            m_bound, m_by = bound("group_moments", mcs, mouts)
+            entry.update(by_shape=rows, moments={
+                "calls": len(mcs), "ms": time_calls(gn_conv.group_moments, mcs, 5),
+                "plain_ms": time_calls(gn_conv.moments_reference, mcs, 2),
+                "bound_ms": m_bound, "bound_by": m_by})
+        del outs, calls, got, one, whole
+        by_dtype[key] = entry
+        torch.cuda.empty_cache()
+    report.update(by_dtype)
+    del vae
+    return report
+
+
+def _act_rank(rank: int, world: int) -> None:
+    """A rank of the `act_shard` phase (a spawned process): gloo on the one
+    card, a (1, world) mesh, the B15N4 training build from the parent's
+    seed (the same weights on every rank, checked by their sum), the SD
+    towers in row bands (`activation_sharding`). (b) bf16: a first step
+    in bands records K2's calls, a second is timed, counted from 0 (launches,
+    variants, the model group's collectives) and its peak bytes read; then
+    (c) the same after `shard_params` (sequence parallelism). (a) and (c)
+    fp32: one step in bands with whole parameters and one after
+    `shard_params`, each under deterministic algorithms, the gradients of
+    sharded masters made whole. (e) K4 on bands (`act_k4_check`). (d) K2's
+    recorded calls at their band shapes against the plain version, timed
+    per shape (`tp_k2_check`, last: the profiler slows later launches).
+    Writes ACT_DIR/rank<r>.pt, a traceback to rank<r>.err on failure."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from xmask3d_tpu_torch.engine.builder import build_statics, build_train_model, label_tree
+        from xmask3d_tpu_torch.parallel.mesh import create_mesh, init_distributed
+        from xmask3d_tpu_torch.parallel.tensor import shard_params
+
+        dev = init_distributed(init_method=f"file://{os.path.join(ACT_DIR, 'rendezvous')}",
+                               backend="gloo")
+        mesh = create_mesh(1, world)
+        data = torch.load(os.path.join(ACT_DIR, "inputs.pt"), map_location=dev,
+                          weights_only=False)
+        batch, draws = data["batch"], data["draws"]
+        table = kernel_table()
+        out = {"device": str(dev), "mesh": mesh.shape}
+
+        t0 = time.time()
+        cfg = _ddp_cfg("bfloat16")
+        model = build_train_model(cfg, seed=0, device=dev)
+        out["expected"] = expected_train_launches(model.cfg)
+        statics = build_statics(model, cfg, device=dev)
+        calls = {"flash_attention": []}
+        out["bands_bf16"] = _timed_band_steps(model, statics, batch, draws, cfg, mesh, table,
+                                              calls)
+        shard_params(model, mesh)
+        out["sp_bf16"] = _timed_band_steps(model, statics, batch, draws, cfg, mesh, table)
+        del model, statics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = _ddp_cfg("float32")
+        model = build_train_model(cfg, seed=0, device=dev)
+        weights_sum = _weights_sum(model)
+        statics = build_statics(model, cfg, device=dev)
+        labels = label_tree(model)
+        start = {n: v.detach().clone() for n, v in model.state_dict().items()
+                 if labels.get(n, "buffer") != "frozen"}
+        for key in ("bands_fp32", "sp_fp32"):
+            if key == "sp_fp32":  # from the same weights and statistics: a step updates them
+                model.load_state_dict(start, strict=False)
+                shard_params(model, mesh)
+            step = _band_step(model, statics, batch, draws, cfg, mesh, deterministic=True)
+            out[key] = dict(_whole_grads(step, model, mesh), weights_sum=weights_sum)
+        del model, statics, start
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["steps_s"] = time.time() - t0
+
+        t0 = time.time()
+        out["k4"] = act_k4_check(mesh, dev, table)
+        out["k4_s"] = time.time() - t0
+        out["k2"] = tp_k2_check(table, calls["flash_attention"])
+        torch.save(out, os.path.join(ACT_DIR, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(ACT_DIR, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def act_shard_phase(ref, tp, table, rows) -> None:
+    """Activation sharding on the card: two ranks spawned over gloo (NCCL
+    refuses two ranks on one card), a (1, 2) mesh, the B15N4 training build
+    at full width on the `ddp` phase's batch of two views (`_act_rank`),
+    the SD UNet and VAE in row bands. (a) The fp32 step in bands held to
+    the one-process step by `ddp_compare`, (c) and with `shard_params` as
+    well; the two ranks bit-equal. (b) The bf16 step's ms and peak bytes a
+    rank, in bands and with `shard_params` too, beside one process's and
+    the `tp` phase's (model 2 without bands); the kernels' launches in each
+    timed step as one process's (`expected_train_launches`), on their fast
+    variants; the model group's collectives and their bytes. (d) Every K2
+    call of the step at its band shape against its plain version, timed
+    per shape; these join K2's row of the `kernels` line (`band_by_shape`).
+    (e) K4 on row bands (`act_k4_check`): the encode equal to one
+    process's in fp32, every band call within its tolerance; the bf16
+    calls' times join K4's row (`band_by_shape`, `band_moments`)."""
+    import shutil
+
+    shutil.rmtree(ACT_DIR, ignore_errors=True)
+    os.makedirs(ACT_DIR)
+    t0 = time.time()
+    try:
+        import torch
+
+        torch.save({"batch": ref["batch"], "draws": ref["draws"]},
+                   os.path.join(ACT_DIR, "inputs.pt"))
+        ranks = _spawn_ranks(2, 900.0, target=_act_rank, directory=ACT_DIR)
+    finally:
+        shutil.rmtree(ACT_DIR, ignore_errors=True)
+    seconds = time.time() - t0
+
+    bad = []
+    cmp = {}
+    for key in ("bands_fp32", "sp_fp32"):
+        c = ddp_compare(ref["one"], ref["nudged"], [r[key] for r in ranks])
+        bad += [f"{key}: {b}" for b in c.pop("bad")]
+        cmp[key] = c
+    for r in ranks:
+        for key in ("bands_bf16", "sp_bf16"):
+            b = r[key]
+            for name, n in r["expected"].items():
+                if b["launches"][name] != n:
+                    bad.append(f"{key} {name}: {b['launches'][name]} launches in the timed "
+                               f"step, expected {n}")
+            try:
+                check_variants(b["variants"], r["expected"], 1)
+            except AssertionError as e:
+                bad.append(f"{key}: {e}")
+        k4 = r["k4"]
+        for key in ("fp32", "bf16"):
+            e = k4[key]
+            if key == "fp32" and any(gap > tol for gap, tol in e["output_gap_and_tol"]):
+                bad.append(f"K4 encode in bands against one process: {e['output_gap_and_tol']}")
+            if not e["conv_worst_over_tol"] <= 1.0:
+                bad.append(f"K4 band conv ({key}): call {e['conv_worst_call']} is "
+                           f"{e['conv_worst_over_tol']}x its tolerance")
+            if e["moments_rel_err"][0] > 1e-6 or e["moments_rel_err"][1] > 1e-5:
+                bad.append(f"K4 band moments ({key}): {e['moments_rel_err']}")
+            for name in (*K4_BAND, "flash_attention"):
+                if not e["launches"][name] or e["launches"][name] != e["band_calls"][name]:
+                    bad.append(f"K4 encode ({key}): {name} launched {e['launches'][name]} "
+                               f"times for {e['band_calls'][name]} calls")
+            if e["launches"]["gn_silu_conv"]:
+                bad.append(f"K4 encode ({key}): whole-map K4 launched in bands")
+            if key == "bf16" and not all(v.startswith("wgmma_") for v in e["variants"]):
+                bad.append(f"K4 band conv (bf16) off the tensor cores: {e['variants']}")
+    if ranks[0]["k4"]["weights_sum"] != ranks[1]["k4"]["weights_sum"]:
+        bad.append("the ranks' VAE weights differ")
+    k2 = [r["k2"] for r in ranks]
+    b0, s0 = ranks[0]["bands_bf16"], ranks[0]["sp_bf16"]
+    k4 = ranks[0]["k4"]
+    log({"phase": "act_shard", "backend": "gloo", "mesh": ranks[0]["mesh"], "batch": 2,
+         "seconds": seconds, "steps_s": [r["steps_s"] for r in ranks],
+         "k4_s": [r["k4_s"] for r in ranks],
+         "bands_bf16_step_ms": [r["bands_bf16"]["step_ms"] for r in ranks],
+         "sp_bf16_step_ms": [r["sp_bf16"]["step_ms"] for r in ranks],
+         "tp_bf16_step_ms": tp["bf16_step_ms"], "one_process_bf16_step_ms": ref["bf16_step_ms"],
+         "bands_bf16_peak_bytes": [r["bands_bf16"]["peak_bytes"] for r in ranks],
+         "sp_bf16_peak_bytes": [r["sp_bf16"]["peak_bytes"] for r in ranks],
+         "tp_bf16_peak_bytes": tp["bf16_peak_bytes"],
+         "one_process_bf16_peak_bytes": ref["bf16_peak_bytes"],
+         "bands_collectives": [b0["collectives"], b0["by_collective"], b0["collective_bytes"]],
+         "sp_collectives": [s0["collectives"], s0["by_collective"], s0["collective_bytes"]],
+         "launches": b0["launches"],
+         "fp32_step_ms": [r[k]["step_ms"] for r in ranks for k in ("bands_fp32", "sp_fp32")],
+         **{f"{k}_compare": v for k, v in cmp.items()},
+         "k2_calls": k2[0]["calls"], "k2_max_abs_err": [k["max_abs_err"] for k in k2],
+         "k2_max_abs_err_fp32": [k["max_abs_err_fp32"] for k in k2],
+         "k2_by_shape": k2[0]["by_shape"],
+         "k4_fp32": {k: v for k, v in k4["fp32"].items()},
+         "k4_bf16": {k: v for k, v in k4["bf16"].items() if k not in ("by_shape", "moments")},
+         "k4_by_shape": k4["bf16"]["by_shape"], "k4_moments": k4["bf16"]["moments"],
+         "bad": bad[:10]})
+    if bad:
+        raise AssertionError("act_shard: " + "; ".join(bad[:10]))
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["band_by_shape"] = k2[0]["by_shape"]
+        if row["name"] == "gn_silu_conv":
+            row["band_by_shape"] = k4["bf16"]["by_shape"]
+            row["band_moments"] = k4["bf16"]["moments"]
+            row["band_launches"] = {n: k4["bf16"]["launches"][n] for n in K4_BAND}
 
 
 # --------------------------------------------------------------------------
@@ -3307,7 +3667,8 @@ def brick_phase(model, caps, view) -> None:
     per-call tolerance (the paths round ~50 layers' outputs to bf16 from
     other summation orders, so the gap compounds past one call's); each
     path's device ms over the whole 3D branch, and K1's calls in the K1
-    path alone."""
+    path alone; the brick path's bound (`brick_bound_ms`: its conv3d calls'
+    padded bricks and products, and its K1 calls)."""
     import torch
 
     from xmask3d_tpu_torch.ops.sparse_conv import (
@@ -3360,6 +3721,33 @@ def brick_phase(model, caps, view) -> None:
             return fn
 
         ms = device_ms([(run("0"), [()]), (run("1"), [()]), (sparse_conv, k1_calls)], 3)
+        # the brick path's bound: per cuDNN conv3d call its halo'd bricks,
+        # weights and output once against a multiply-add per tap, input and
+        # output channel of every brick slot; with its K1 calls' own bounds
+        conv_work, brick_k1 = [], {"sparse_conv": []}
+        real_conv3d = torch.nn.functional.conv3d
+
+        def counted_conv3d(x, w, *args, **kw):
+            y = real_conv3d(x, w, *args, **kw)
+            conv_work.append((nbytes(x, w, y), 2 * y.numel() * w[0].numel()))
+            return y
+
+        torch.nn.functional.conv3d = counted_conv3d
+        try:
+            with environ(XMASK3D_BRICK="1"), recording(brick_k1):
+                model.run_3d(batch)
+        finally:
+            torch.nn.functional.conv3d = real_conv3d
+        k1_in_brick = brick_k1["sparse_conv"]
+        k1_bound, _ = bound("sparse_conv", k1_in_brick, [sparse_conv(*c) for c in k1_in_brick])
+        conv_times = [(b / HBM_BYTES_PER_S, ops / PEAK_OPS["bf16"]) for b, ops in conv_work]
+        report.update(brick_bound_ms=sum(max(t) for t in conv_times) * 1e3 + k1_bound,
+                      brick_bound_by="bytes" if sum(t[0] for t in conv_times)
+                      >= sum(t[1] for t in conv_times) else "operations",
+                      brick_conv3d_calls=len(conv_work),
+                      brick_conv3d_bytes=sum(b for b, _ in conv_work),
+                      brick_conv3d_ops=sum(o for _, o in conv_work), brick_k1_bound_ms=k1_bound)
+        del brick_k1, k1_in_brick
         reset_launches()
         with environ(XMASK3D_BRICK="1"):
             model.run_3d(batch)
@@ -3594,7 +3982,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_phase(cfg, caps, table)
-    tp_phase(ddp_phase(caps), table, rows)
+    ref = ddp_phase(caps)
+    act_shard_phase(ref, tp_phase(ref, table, rows), table, rows)
+    del ref
 
     log(reference_check(CONFIG))
     log(reference_check(CONFIG, fused_gn=True))

@@ -331,6 +331,70 @@ def test_group_statistics_kernel_against_float64(cuda, loc, spread, bsz, h, w, c
         _stats_against_float64(x.to(dt), scale, bias, gn_groups(c))
 
 
+@pytest.mark.parametrize("bsz,c,cout,h,w,loc", [
+    (1, 128, 128, 64, 96, 0.5), (1, 512, 512, 32, 64, 0.5), (2, 256, 256, 48, 40, 30.0),
+    (1, 20, 24, 12, 67, -3.0),
+])
+def test_k4_on_row_bands_against_the_plain_band_version(cuda, bsz, c, cout, h, w, loc):
+    """K4 as a banded VAE resblock runs it, two bands of a map: each band's
+    moments from the statistics kernel, merged in rank order, give the
+    whole map's affine (float64 `var_mean`, within 1e-5 of max |a|, |s|);
+    the conv kernel on each band with one raw row of its neighbour against
+    the plain band version on the same inputs (K4's tolerance), and the
+    bands' rows against one K4 call on the whole map."""
+    rng = np.random.RandomState(c + h + int(loc))
+    x, scale, bias, wt, b = _gn_args(rng, bsz, h, w, c, cout, cuda, loc=loc,
+                                     spread=0.5 if loc > 10 else 2.0)
+    groups = gn_groups(c)
+    for dt, tol in DTYPES:
+        xd = x.to(dt)
+        half = h // 2
+        bands = [xd[:, :half].contiguous(), xd[:, half:].contiguous()]
+        n = tgc.group_moments.launches
+        moments = torch.stack([tgc.group_moments(band, groups) for band in bands])
+        torch.cuda.synchronize()
+        assert tgc.group_moments.launches == n + 2
+        for band, mom in zip(bands, moments):
+            ref = tgc.moments_reference(band, groups)
+            assert torch.equal(mom[..., 0], ref[..., 0])
+            assert float((mom[..., 1] - ref[..., 1]).abs().max()) <= 1e-6 * (1 + abs(loc))
+            assert float(((mom[..., 2] - ref[..., 2]) / ref[..., 2]).abs().max()) <= 1e-5
+        a, s = tgc.affine_from_moments(moments, scale, bias)
+        v64, m64 = torch.var_mean(xd.double().reshape(bsz, h * w, groups, -1), dim=(1, 3),
+                                  correction=0)
+        a64 = torch.rsqrt(v64 + 1e-6)[..., None] * scale.double().reshape(groups, -1)
+        s64 = bias.double().reshape(groups, -1) - m64[..., None] * a64
+        assert float((a.double() - a64.reshape(bsz, c)).abs().max()) <= 1e-5 * float(a64.abs().max())
+        assert float((s.double() - s64.reshape(bsz, c)).abs().max()) <= 1e-5 * float(s64.abs().max())
+        exts = [xd[:, :half + 1].contiguous(), xd[:, half - 1:].contiguous()]
+        for ext in exts:
+            _close(tgc.affine_silu_conv, tgc.affine_silu_conv_reference, (ext, a, s, wt, b), {},
+                   tol)
+        rows = [tgc.affine_silu_conv(exts[0], a, s, wt, b)[:, :half],
+                tgc.affine_silu_conv(exts[1], a, s, wt, b)[:, 1:]]
+        whole = tgc.gn_silu_conv(xd, scale, bias, wt, b, groups).float()
+        err = float((torch.cat(rows, 1).float() - whole).abs().max())
+        assert err <= tol * max(1.0, float(whole.abs().max())), err
+
+
+def test_k4_band_pieces_backward(cuda):
+    """The band pieces' autograd Functions against their plain versions'
+    autograd on the card: the moments (in x) and the conv given its affine
+    (in x, a, s, w and b)."""
+    rng = np.random.RandomState(5)
+    x, scale, bias, wt, b = _gn_args(rng, 1, 24, 40, 64, 64, cuda)
+    a, s = tgc.affine_from_stats(x, scale, bias, 32, 1e-6)
+    _backward_close(tgc.affine_silu_conv, tgc.affine_silu_conv_reference, (x, a, s, wt, b),
+                    lambda fn, *t: fn(*t), 1e-5)
+    xs = x.detach().clone().requires_grad_()
+    ys = x.detach().clone().requires_grad_()
+    ct = torch.randn(1, 32, 3, device=cuda, dtype=torch.float64)
+    (tgc.group_moments(xs, 32)[..., 1:] * ct[..., 1:]).sum().backward()
+    (tgc.moments_reference(ys, 32)[..., 1:] * ct[..., 1:]).sum().backward()
+    err = float((xs.grad - ys.grad).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ys.grad.abs().max())), err
+
+
 @pytest.mark.parametrize("dt,c,offset,groups", [
     (torch.bfloat16, 512, 1, 32), (torch.float32, 512, 1, 32), (torch.bfloat16, 260, 0, 4),
     (torch.float32, 1028, 3, 4),

@@ -1,5 +1,5 @@
-"""Rank processes for `tests/test_torch_distributed.py` and
-`tests/test_torch_tensor_parallel.py`.
+"""Rank processes for `tests/test_torch_distributed.py`,
+`tests/test_torch_tensor_parallel.py` and `tests/test_torch_act_sharding.py`.
 
 `spawn_ranks(job, tmp, args, world)` starts `world` processes (two by
 default; the `spawn` method, one torch thread each) that join a gloo group
@@ -248,7 +248,106 @@ def tp_step_job(tmp, over, data_axis, model_axis, round_trip):
     return out
 
 
-JOBS = {"tp_step": tp_step_job,
+def _unet_loss(out):
+    eps, taps = out
+    return eps.square().sum() + sum(t.square().sum() for t in taps)
+
+
+def _unet_grads(unet, d, mesh, tp=False):
+    """The UNet's full forward at the 16^2 latent under bands and its
+    sum-of-squares loss's gradients: every parameter's (summed over the
+    model group by `reduce_band_grads`; a sharded slice made whole), and
+    `context`'s and `cond_emb`'s."""
+    from xmask3d_tpu_torch.parallel.spatial import activation_sharding, reduce_band_grads
+    from xmask3d_tpu_torch.parallel.tensor import gather_tensor, sharded_tensors
+
+    unet.zero_grad(set_to_none=True)
+    ctx = d["ctx16"].clone().requires_grad_()
+    cond = d["cond16"].clone().requires_grad_()
+    with activation_sharding(mesh):
+        _unet_loss(unet(d["x16"], d["t16"], ctx, cond, full=True)).backward()
+        summed = reduce_band_grads(unet)
+    shards = sharded_tensors(unet) if tp else {}
+    grads = {n: (gather_tensor(p.grad, *shards[n], mesh) if n in shards else p.grad.clone())
+             for n, p in unet.named_parameters()}
+    return {"params": grads, "context": ctx.grad, "cond_emb": cond.grad, "summed": summed}
+
+
+def act_shard_job(tmp):
+    """Every case of `tests/test_torch_act_sharding.py` on a (1, 2) mesh:
+    the UNet's full forward at 32^2 in bands; its gradients at 16^2 with
+    remat off and on, and with `shard_params` too (once more with the
+    reduce-scatter and all-to-all in the all-reduce and all-gather forms
+    that gloo runs on CUDA tensors); the VAE encode at 64^2 plain and with
+    `fused_gn` (with its parameters' gradients); what runs replicated (a
+    7-row latent, an 8^2 UNet latent, sharding off); the tiny train step
+    with `shard_params` and bands."""
+    from xmask3d_tpu_torch.engine.builder import build_train_model
+    from xmask3d_tpu_torch.engine.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+    from xmask3d_tpu_torch.models.layers import set_remat
+    from xmask3d_tpu_torch.models.sd_unet import SDUNet, UNET_TINY
+    from xmask3d_tpu_torch.models.vae import AutoencoderKL, VAE_TINY
+    from xmask3d_tpu_torch.parallel import spatial
+    from xmask3d_tpu_torch.parallel.mesh import create_mesh
+    from xmask3d_tpu_torch.parallel.spatial import activation_sharding, shard_spatial
+    from xmask3d_tpu_torch.parallel.tensor import shard_params
+
+    d = torch.load(os.path.join(tmp, "act_in.pt"), weights_only=False)
+    mesh = create_mesh(1, 2)
+    out = {}
+    unet = SDUNet(UNET_TINY)
+    unet.load_state_dict(d["unet"])
+    with torch.no_grad(), activation_sharding(mesh):
+        out["unet32"] = unet(d["x32"], d["t32"], d["ctx32"], full=True)
+        out["unet8"] = unet(d["x32"][:, :8, :8], d["t32"], d["ctx32"], full=True)
+        out["shard7"] = shard_spatial(d["x32"][:, :7])
+    with torch.no_grad():
+        out["unet32_off"] = unet(d["x32"], d["t32"], d["ctx32"], full=True)
+    out["grads"] = _unet_grads(unet, d, mesh)
+    set_remat(unet, True)
+    out["grads_remat"] = _unet_grads(unet, d, mesh)
+    shard_params(unet, mesh)
+    out["sliced"] = len({id(getattr(m, n)) for m in unet.modules() if hasattr(m, "shard_dims")
+                         for n in m.shard_dims()})
+    out["grads_tp"] = _unet_grads(unet, d, mesh, tp=True)
+    native = spatial._gloo_cuda
+    spatial._gloo_cuda = lambda t, m: True
+    try:
+        out["grads_tp_gloo_cuda_forms"] = _unet_grads(unet, d, mesh, tp=True)
+    finally:
+        spatial._gloo_cuda = native
+    del unet
+
+    for fused in (False, True):
+        vae = AutoencoderKL(VAE_TINY, fused_gn=fused)
+        vae.load_state_dict(d["vae"])
+        with torch.no_grad(), activation_sharding(mesh):
+            out[f"encode_{fused}"] = vae.encode(d["img64"])
+            out[f"decode7_{fused}"] = vae.decode(d["lat7"])
+        if fused:
+            with activation_sharding(mesh):
+                latent, taps = vae.encode(d["img64"])
+                (latent.square().sum() + sum(t.square().sum() for t in taps)).backward()
+                spatial.reduce_band_grads(vae.encoder)  # quant_conv reads the gathered map
+            out["encode_grads"] = {n: p.grad for n, p in vae.named_parameters()
+                                   if p.grad is not None}
+
+    cfg = _tiny_cfg(d["over"])
+    model = build_train_model(cfg, tiny=True, seed=int(os.environ["RANK"]) + 1, device="cpu")
+    model.load_state_dict(d["state"])
+    shard_params(model, mesh)
+    state = create_train_state(model, make_optimizer(model, cfg.lr_3d, cfg.lr_others,
+                                                     d["total_steps"]))
+    with activation_sharding(mesh):
+        out["metrics"] = make_train_step(dict(cfg.loss_weight))(
+            state, d["batch"], d["statics"], 1.0, draws=d["draws"])
+    out["mu"] = _first_moments(state, whole=True)
+    out["buffers"] = {k: v.clone() for k, v in model.named_buffers()}
+    return out
+
+
+JOBS = {"tp_step": tp_step_job, "act_shard": act_shard_job,
         "batchnorm": batchnorm_job, "train_step": train_step_job, "eval": eval_job,
         "validation": validation_job, "trainer": trainer_job}
 

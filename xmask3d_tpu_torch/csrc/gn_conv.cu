@@ -70,6 +70,13 @@
 // Widths off 8 channels stage the halo by plain loads; any B, H, W, C and
 // C_out: ragged tiles, chunks and output tiles are masked or zero-padded.
 //
+// Row bands (the VAE under activation sharding): `xm_gn_moments` gives a
+// band's per-(batch, group) count, mean and M2 in fp64 (`gn_stats_kernel`,
+// then `gn_moments_kernel`, the merge of `gn_affine_kernel`); the wrapper
+// merges the ranks' moments in rank order by the same formula and runs the
+// conv on the band with one raw row of each neighbour, whose outputs it
+// drops. The conv's zero padding is then only at the map's true edges.
+//
 // fp32 inputs (the checks and the fp32 tiny model) take the CUDA-core FMA
 // kernel `gn_conv_f32_kernel` (8 x 16 pixels x 64 channels a block) with the
 // weights as (tap, C_out, C).
@@ -217,9 +224,26 @@ __global__ void __launch_bounds__(ST) gn_stats_kernel(const T* __restrict__ x,
   }
 }
 
-// Block (g, b): the P partials of group g merged the same way in fp64
-// (thread t takes k = t, t + 256, ...; fixed-order block sums), then a and s
-// of the group's channels, each rounded once to fp32.
+// The P partials of group g of batch b (part_g: partial k at + k * G * 2)
+// merged the same way in fp64 (thread t takes k = t, t + 256, ...;
+// fixed-order block sums): the group's mean and M2 over its hw * cg values.
+__device__ void merge_partials(const double* __restrict__ part_g, int hw, int cg, int G, int P,
+                               int ppb, double* red, double& mean, double& m2) {
+  const double n = (double)hw * cg;
+  double s1 = 0.0;
+  for (int k = threadIdx.x; k < P; k += ST)
+    s1 += (double)(min(hw, (k + 1) * ppb) - k * ppb) * cg * part_g[(size_t)k * G * 2];
+  mean = block_sum(s1, red) / n;
+  double s2 = 0.0;
+  for (int k = threadIdx.x; k < P; k += ST) {
+    const double d = part_g[(size_t)k * G * 2] - mean;
+    s2 += part_g[(size_t)k * G * 2 + 1] + (double)(min(hw, (k + 1) * ppb) - k * ppb) * cg * d * d;
+  }
+  m2 = block_sum(s2, red);
+}
+
+// Block (g, b): the group's partials merged, then a and s of its channels,
+// var = M2 / n, each rounded once to fp32.
 template <typename PT>
 __global__ void __launch_bounds__(ST) gn_affine_kernel(
     const double* __restrict__ part, const PT* __restrict__ scale, const PT* __restrict__ bias,
@@ -229,17 +253,9 @@ __global__ void __launch_bounds__(ST) gn_affine_kernel(
   const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int cg = C / G;
   const double n = (double)hw * cg;
-  const double* part_g = part + ((size_t)b * P * G + g) * 2;  // partial k at + k * G * 2
-  double s1 = 0.0;
-  for (int k = tid; k < P; k += ST)
-    s1 += (double)(min(hw, (k + 1) * ppb) - k * ppb) * cg * part_g[(size_t)k * G * 2];
-  const double mean = block_sum(s1, red) / n;
-  double s2 = 0.0;
-  for (int k = tid; k < P; k += ST) {
-    const double d = part_g[(size_t)k * G * 2] - mean;
-    s2 += part_g[(size_t)k * G * 2 + 1] + (double)(min(hw, (k + 1) * ppb) - k * ppb) * cg * d * d;
-  }
-  const double inv = 1.0 / sqrt(fmax(block_sum(s2, red) / n, 0.0) + (double)eps);
+  double mean, m2;
+  merge_partials(part + ((size_t)b * P * G + g) * 2, hw, cg, G, P, ppb, red, mean, m2);
+  const double inv = 1.0 / sqrt(fmax(m2 / n, 0.0) + (double)eps);
   for (int c = g * cg + tid; c < (g + 1) * cg; c += ST) {
     const double av = inv * (double)to_f(scale[c]);
     a[(size_t)b * C + c] = (float)av;
@@ -247,10 +263,28 @@ __global__ void __launch_bounds__(ST) gn_affine_kernel(
   }
 }
 
-template <typename T, typename PT, int VEC>
-int launch_affine(const void* x, void* part, const void* scale, const void* bias, void* a,
-                  void* s, int B, int hw, int C, int G, int P, int ppb, float eps,
-                  cudaStream_t stream) {
+// Block (g, b): the group's partials merged into mom[b, g] = (count, mean,
+// M2) in fp64, for a row band whose moments merge with other ranks' before
+// the affine (the wrapper's `affine_from_moments`, the same formula).
+__global__ void __launch_bounds__(ST) gn_moments_kernel(const double* __restrict__ part,
+                                                       double* __restrict__ mom, int hw, int C,
+                                                       int G, int P, int ppb) {
+  __shared__ double red[ST / 32];
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int cg = C / G;
+  double mean, m2;
+  merge_partials(part + ((size_t)b * P * G + g) * 2, hw, cg, G, P, ppb, red, mean, m2);
+  if (threadIdx.x == 0) {
+    double* dst = mom + ((size_t)b * G + g) * 3;
+    dst[0] = (double)hw * cg;
+    dst[1] = mean;
+    dst[2] = m2;
+  }
+}
+
+template <typename T, int VEC>
+int launch_stats(const void* x, void* part, int B, int hw, int C, int G, int P, int ppb,
+                 cudaStream_t stream) {
   const int slots = C / VEC, rows = slots < ST ? ST / slots : 1;
   const size_t smem = (2 * (size_t)rows * C + rows) * sizeof(float);
   cudaError_t err = cudaSuccess;
@@ -260,11 +294,28 @@ int launch_affine(const void* x, void* part, const void* scale, const void* bias
   if (err != cudaSuccess) return (int)err;
   gn_stats_kernel<T, VEC><<<dim3(P, B), ST, smem, stream>>>((const T*)x, (double*)part, hw, C,
                                                             G, ppb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename PT, int VEC>
+int launch_affine(const void* x, void* part, const void* scale, const void* bias, void* a,
+                  void* s, int B, int hw, int C, int G, int P, int ppb, float eps,
+                  cudaStream_t stream) {
+  const int err = launch_stats<T, VEC>(x, part, B, hw, C, G, P, ppb, stream);
+  if (err != 0) return err;
   gn_affine_kernel<PT><<<dim3(G, B), ST, 0, stream>>>(
       (const double*)part, (const PT*)scale, (const PT*)bias, (float*)a, (float*)s, hw, C, G, P,
       ppb, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_moments(const void* x, void* part, void* mom, int B, int hw, int C, int G, int P,
+                   int ppb, cudaStream_t stream) {
+  const int err = launch_stats<T, VEC>(x, part, B, hw, C, G, P, ppb, stream);
+  if (err != 0) return err;
+  gn_moments_kernel<<<dim3(G, B), ST, 0, stream>>>((const double*)part, (double*)mom, hw, C, G,
+                                                   P, ppb);
   return (int)cudaGetLastError();
 }
 
@@ -644,6 +695,24 @@ extern "C" int xm_gn_affine(const void* x, void* part, const void* scale, const 
     if (vec == 1) XM_AFFINE(float, 1);
   }
 #undef XM_AFFINE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The per-(batch, group) moments mom (B, G, 3) fp64 = (count, mean, M2) of
+// x (B, H*W, C) in its own type: `gn_stats_kernel` as above, then
+// `gn_moments_kernel`. The same P, ppb and vec as `xm_gn_affine`.
+extern "C" int xm_gn_moments(const void* x, void* part, void* mom, int B, int hw, int C, int G,
+                             int P, int ppb, int vec, int x_bf16, void* stream) {
+  if (B <= 0 || C <= 0) return 0;
+  if (hw <= 0 || G <= 0 || C % G || P <= 0 || C % vec) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_bf16) {
+    if (vec == 8) return launch_moments<bf16, 8>(x, part, mom, B, hw, C, G, P, ppb, st);
+    if (vec == 1) return launch_moments<bf16, 1>(x, part, mom, B, hw, C, G, P, ppb, st);
+  } else {
+    if (vec == 4) return launch_moments<float, 4>(x, part, mom, B, hw, C, G, P, ppb, st);
+    if (vec == 1) return launch_moments<float, 1>(x, part, mom, B, hw, C, G, P, ppb, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xmask3d_tpu_torch.device import device_constant
+from xmask3d_tpu_torch.parallel import spatial
 
 EPS = 1e-6
 
@@ -27,7 +28,9 @@ class RematBlock(nn.Module):
     block (`torch.utils.checkpoint`, non-reentrant). Only a call that
     autograd records is checkpointed (grad mode on, and an input or a
     parameter that requires grad); eval, `no_grad` and the captured serving
-    graphs run `body` as it is. Subclasses define `body`."""
+    graphs run `body` as it is. Subclasses define `body`. The recompute runs
+    in the band the block ran in (`parallel/spatial.py`): the backward is
+    outside the tower's entry, which set it."""
 
     remat = False
 
@@ -35,8 +38,12 @@ class RematBlock(nn.Module):
         if self.remat and torch.is_grad_enabled() and (
                 any(torch.is_tensor(a) and a.requires_grad for a in args)
                 or any(p.requires_grad for p in self.parameters())):
-            return checkpoint(self.body, *args, use_reentrant=False)
+            return checkpoint(self._body_in, spatial.current_band(), *args, use_reentrant=False)
         return self.body(*args)
+
+    def _body_in(self, band, *args):
+        with spatial.use_band(band):
+            return self.body(*args)
 
 
 _FORCE_INT8 = None  # test and tooling override of XMASK3D_INT8
@@ -77,7 +84,14 @@ def gn_groups(channels: int, preferred: int = 32) -> int:
 
 class Conv(nn.Module):
     """2D conv over NHWC tensors (flax `nn.Conv` with symmetric integer
-    padding); weight stored OIHW."""
+    padding); weight stored OIHW.
+
+    In a band of a map split by rows (`parallel/spatial.py`), x is the
+    rank's rows; a band starting at row s reads rows from s - padding, and
+    its last output row reads kernel - stride - padding rows past its end
+    (a 3x3 conv: one row each side, or at stride 2 one above), which come
+    from the neighbours, zeros at the map's edges. With `replicated`, x is
+    the whole map every rank holds and the band takes its rows locally."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1, stride: int = 1,
                  padding: int = 0, bias: bool = True):
@@ -87,9 +101,13 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding)
+    def forward(self, x: torch.Tensor, replicated: bool = False) -> torch.Tensor:
+        padding = self.padding
+        if spatial.current_band() is not None:
+            top, bottom = self.padding, self.weight.shape[-1] - self.stride - self.padding
+            x = spatial.band_rows(x, top, bottom) if replicated else spatial.halo(x, top, bottom)
+            padding = (0, self.padding)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -103,7 +121,12 @@ class GroupNorm(nn.Module):
     The per-channel fold x * a + (bias - mean * a) would save a pass but
     cancels where |mean| * rsqrt(var + eps) is large (groups of one value
     near 30 miss flax by 1.7e-3 in fp32), so the centred form stays. The
-    parameters are promoted to fp32 inside the ops that read them."""
+    parameters are promoted to fp32 inside the ops that read them.
+
+    In a band (`parallel/spatial.py`) the fp32 sums of x and x^2 per
+    (batch, group) are summed over the ranks (one all-reduce, with
+    gradient) before the same formula: only the order of the sums
+    changes."""
 
     def __init__(self, channels: int, preferred: int = 32):
         super().__init__()
@@ -115,8 +138,16 @@ class GroupNorm(nn.Module):
         g = self.groups
         cg = x.shape[-1] // g
         xf = x.float().reshape(x.shape[0], -1, g, cg)
-        mean = xf.mean(dim=(1, 3), keepdim=True)
-        var = xf.square().mean(dim=(1, 3), keepdim=True).sub_(mean.square()).clamp_(min=0.0)
+        band = spatial.current_band()
+        if band is None:
+            mean = xf.mean(dim=(1, 3), keepdim=True)
+            var = xf.square().mean(dim=(1, 3), keepdim=True).sub_(mean.square()).clamp_(min=0.0)
+        else:
+            sums = spatial.all_reduce_band(
+                torch.stack([xf.sum(dim=(1, 3)), xf.square().sum(dim=(1, 3))]))
+            sums = (sums / (xf.shape[1] * cg * band.model))[:, :, None, :, None]
+            mean = sums[0]
+            var = (sums[1] - mean.square()).clamp(min=0.0)
         mul = torch.rsqrt(var.add_(EPS)) * self.weight.reshape(g, cg)
         y = torch.addcmul(self.bias.reshape(g, cg), xf - mean, mul)
         return y.reshape(x.shape).to(x.dtype)

@@ -7,6 +7,13 @@ taken: the eval path uses nothing after it (XLA removes that tail as dead
 code on the JAX side). With `full=True` it runs every output block and the
 output head and returns (eps, taps), as the JAX module does: the sampler's
 path (`models/txt2img.py`).
+
+Under `activation_sharding` (`parallel/spatial.py`) the UNet runs in row
+bands over the mesh's model group where its latent's rows allow: the JAX
+module's `shard_spatial` on every block output. Self-attention then gathers
+its keys and values and runs K2 on the band's queries; cross-attention
+reads the replicated `context` locally; the skips stay banded, and the taps
+and `eps` are gathered at the exit.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from torch import nn
 from xmask3d_tpu_torch.models.layers import (
     Conv, GroupNorm, LayerNorm, RematBlock, upsample2x_nearest)
 from xmask3d_tpu_torch.ops.flash_attention import attention
+from xmask3d_tpu_torch.parallel import spatial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +83,12 @@ class CrossAttention(nn.Module):
     """Multi-head attention; Q/K/V projections kept as separate bias-free
     `to_q`/`to_k`/`to_v` (the JAX module concatenates them into one matmul).
     The heads it runs are those its `to_q` holds: all of them, or a model
-    rank's under tensor parallelism (`parallel/tensor.py`)."""
+    rank's under tensor parallelism (`parallel/tensor.py`).
+
+    In a band, self-attention gathers its keys and values over the model
+    group and K2 takes the band's queries against all of them; under tensor
+    parallelism as well, the input's rows are gathered first, the rank's
+    heads run at full length and `to_out` reduce-scatters to the band."""
 
     def __init__(self, c: int, heads: int, ctx_dim: Optional[int] = None):
         super().__init__()
@@ -87,6 +100,8 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Linear(c, c)
 
     def forward(self, x, context=None):
+        if spatial.reads_all_rows(self.to_q):
+            x = spatial.gather_rows(x)
         ctx = x if context is None else context
         b, t = x.shape[:2]
         d = self.head_dim
@@ -95,7 +110,12 @@ class CrossAttention(nn.Module):
         def split(z):
             return z.reshape(z.shape[0], z.shape[1], h, d).transpose(1, 2).contiguous()
 
-        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
+        q = split(self.to_q(x))
+        if context is None and spatial.current_band() is not None \
+                and not spatial.reads_all_rows(self.to_q):
+            k, v = (split(spatial.gather_rows(p(x))) for p in (self.to_k, self.to_v))
+        else:
+            k, v = split(self.to_k(ctx)), split(self.to_v(ctx))
         out = attention(q, k, v).transpose(1, 2).reshape(b, t, h * d)
         return self.to_out(out)
 
@@ -124,7 +144,10 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff_out(self.ff_geglu(self.norm3(x)))
+        y = self.norm3(x)
+        if spatial.reads_all_rows(self.ff_geglu.proj):
+            y = spatial.gather_rows(y)
+        return x + self.ff_out(self.ff_geglu(y))
 
 
 class SpatialTransformer(RematBlock):
@@ -182,7 +205,17 @@ class SDUNet(nn.Module):
 
     def forward(self, x, t, context, cond_emb=None, full: bool = False):
         """x (B, h, w, 4) noisy latent, t (B,), context (B, T, ctx) ->
-        the output-block taps; with `full`, (eps (B, h, w, 4), taps)."""
+        the output-block taps; with `full`, (eps (B, h, w, 4), taps). In
+        bands where `activation_sharding` is on and h splits (every level
+        into the model axis)."""
+        with spatial.banded(x.shape[1], len(self.cfg.ch_mult) - 1) as band:
+            if band is None:
+                return self._forward(x, t, context, cond_emb, full)
+            return spatial.gather_outputs(self._forward(
+                x, t, spatial.copy_to_band(context),
+                None if cond_emb is None else spatial.copy_to_band(cond_emb), full))
+
+    def _forward(self, x, t, context, cond_emb, full):
         cfg = self.cfg
         dt = self.time_embed_0.weight.dtype
         emb = self.time_embed_0(timestep_embedding(t, cfg.model_channels).to(dt))
@@ -190,7 +223,7 @@ class SDUNet(nn.Module):
         if cond_emb is not None:
             emb = emb + cond_emb.to(emb.dtype)
         n_lv = len(cfg.ch_mult)
-        h = self.in_conv(x.to(dt))
+        h = self.in_conv(x.to(dt), replicated=True)
         hs = [h]
         for lv in range(n_lv):
             for i in range(cfg.num_res_blocks):

@@ -9,6 +9,14 @@ indices. `decode_taps` stops the decoder once its last tap is taken, since
 the eval path uses only the taps (the rest of the decoder is dead code that
 XLA removes on the JAX side); `decode` runs every level and the output head
 and returns (rgb, taps), the sampler's path.
+
+Under `activation_sharding` (`parallel/spatial.py`) the encoder and the
+decoder each run in row bands over the mesh's model group where their
+input's rows allow: the JAX module's `shard_spatial` on every block output.
+The mid attention gathers its keys and values and runs K2 on the band's
+queries; with `fused_gn`, K4 takes the bands' merged statistics and the
+neighbours' raw edge rows (`ResnetBlock._stage`). The taps, the moments and
+the RGB are gathered at the exit.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from torch import nn
 
 from xmask3d_tpu_torch.models.layers import Conv, GroupNorm, RematBlock, upsample2x_nearest
 from xmask3d_tpu_torch.ops.flash_attention import attention
-from xmask3d_tpu_torch.ops.gn_conv import gn_silu_conv, kernel_params
+from xmask3d_tpu_torch.ops.gn_conv import (
+    affine_from_moments, affine_silu_conv, gn_silu_conv, group_moments, kernel_params)
+from xmask3d_tpu_torch.parallel import spatial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +64,11 @@ class ResnetBlock(RematBlock):
         self._k4_params = {}  # conv name -> (key, K4's layout of its weight and bias)
 
     def _stage(self, x, norm: GroupNorm, conv: Conv, name: str):
+        """GroupNorm -> SiLU -> conv3x3. With `fused_gn` one K4 call; in a
+        band, K4's statistics of the band (`group_moments`) merged over the
+        ranks in rank order (`affine_from_moments`), then its conv on the
+        band with one raw row of each neighbour (`affine_silu_conv`), whose
+        outputs on those rows are dropped."""
         if not self.fused_gn:
             return conv(F.silu(norm(x)))
         # the port's Conv stores OIHW; K4 takes HWIO, and on the card its own
@@ -66,8 +81,15 @@ class ResnetBlock(RematBlock):
             if hit is None or hit[0] != key:
                 hit = self._k4_params[name] = (key, kernel_params(w, conv.bias, x.dtype))
             params = hit[1]
-        return gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w, conv.bias,
-                            groups=norm.groups, params=params)
+        x = x.contiguous()
+        if spatial.current_band() is None:
+            return gn_silu_conv(x, norm.weight, norm.bias, w, conv.bias, groups=norm.groups,
+                                params=params)
+        moments = spatial.gather_rows(group_moments(x, norm.groups)[None], dim=0)
+        a, s = affine_from_moments(moments, norm.weight, norm.bias)
+        ext, top, bottom = spatial.raw_halo(x, 1)
+        y = affine_silu_conv(ext, a, s, w, conv.bias, params=params)
+        return y[:, top:y.shape[1] - bottom]
 
     def body(self, x):
         h = self._stage(x, self.norm1, self.conv1, "conv1")
@@ -78,7 +100,8 @@ class ResnetBlock(RematBlock):
 
 
 class AttnBlock(RematBlock):
-    """Single-head spatial self-attention over H x W (VAE mid block)."""
+    """Single-head spatial self-attention over H x W (VAE mid block); in a
+    band, the band's queries against every band's keys and values."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -92,6 +115,7 @@ class AttnBlock(RematBlock):
         b, h, w, c = x.shape
         y = self.norm(x)
         q, k, v = (p(y).reshape(b, 1, h * w, c).contiguous() for p in (self.q, self.k, self.v))
+        k, v = spatial.gather_rows(k, dim=2), spatial.gather_rows(v, dim=2)
         out = attention(q, k, v).reshape(b, h, w, c)
         return x + self.proj_out(out)
 
@@ -102,8 +126,9 @@ class Downsample(nn.Module):
         self.conv = Conv(c, c, 3, stride=2)
 
     def forward(self, x):
-        # SD's asymmetric (0, 1) padding for the strided conv
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+        # SD's asymmetric (0, 1) padding for the strided conv; in a band the
+        # row below comes from the next band (the last one's is the pad row)
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, int(spatial.current_band() is None))))
 
 
 class Upsample(nn.Module):
@@ -136,9 +161,14 @@ class VAEEncoder(nn.Module):
         self.conv_out = Conv(ch, 2 * c.z_channels, 3, padding=1)
 
     def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        with spatial.banded(x.shape[1], len(self.cfg.ch_mult) - 1) as band:
+            out = self._forward(x)
+            return out if band is None else spatial.gather_outputs(out)
+
+    def _forward(self, x):
         c = self.cfg
         taps, flat_idx = [], 0
-        h = self.conv_in(x)
+        h = self.conv_in(x, replicated=True)
         for i_level in range(len(c.ch_mult)):
             for i_block in range(c.num_res_blocks):
                 if flat_idx in self.tap_indices:
@@ -180,10 +210,15 @@ class VAEDecoder(nn.Module):
         """The decoder taps, stopping once the last one is taken; with
         `full`, (rgb (B, H, W, 3), taps) after every level, `norm_out`
         (plain GroupNorm), SiLU and `conv_out`."""
+        with spatial.banded(z.shape[1]) as band:
+            out = self._forward(z, full)
+            return out if band is None else spatial.gather_outputs(out)
+
+    def _forward(self, z, full):
         c = self.cfg
         taps, flat_idx = [], 0
         last = max(self.tap_indices)
-        h = self.conv_in(z)
+        h = self.conv_in(z, replicated=True)
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
         for i_level in reversed(range(len(c.ch_mult))):
             for i_block in range(c.num_res_blocks + 1):

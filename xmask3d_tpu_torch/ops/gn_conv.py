@@ -13,6 +13,13 @@ row's moments in shared memory), so there is no shape gate; on a CPU tensor
 the plain versions run (`affine_from_stats`, `gn_silu_conv_reference`).
 `gn_silu_conv` is differentiable in x, scale, bias, w and b: its backward is
 the plain version's VJP.
+
+On a row band of a map split over ranks (`parallel/spatial.py`) the three
+steps are apart: `group_moments` (the statistics kernel's per-(batch, group)
+count, mean and M2 of the band, merged over its blocks in fp64), the ranks'
+moments merged in rank order by `affine_from_moments` (the affine kernel's
+formula, in fp64, rounded once to fp32), and `affine_silu_conv` (the conv
+kernel on the band with its neighbours' raw edge rows, given the affine).
 """
 
 from __future__ import annotations
@@ -58,6 +65,50 @@ def affine_from_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     a = torch.rsqrt(var.add_(eps)).unsqueeze(2) * scale.reshape(groups, cg)
     s = torch.addcmul(bias.reshape(groups, cg), mean.unsqueeze(2), a, value=-1.0)
     return a.reshape(bsz, c), s.reshape(bsz, c)
+
+
+def moments_reference(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain version of `group_moments`: (B, G, 3) fp64 (count, mean, M2)
+    of x (B, H, W, C) per (batch, group), in two fp64 passes."""
+    bsz, h, wd, c = x.shape
+    xf = x.double().reshape(bsz, h * wd, groups, c // groups)
+    mean = xf.mean(dim=(1, 3))
+    m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, h * wd * (c // groups)), mean, m2], dim=-1)
+
+
+def affine_from_moments(moments: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        eps: float = 1e-6):
+    """(a, s), each (B, C) fp32, of the GroupNorm over the union of the
+    parts whose moments are given: (R, B, G, 3) (count, mean, M2, each
+    part's `group_moments`, in rank order). The parts are merged in that
+    order by Chan's formula in closed form in fp64 (the count-weighted mean,
+    then M2 = sum of the parts' M2 + n_k (mean_k - mean)^2), then a = scale
+    / sqrt(max(M2 / n, 0) + eps) and s = bias - mean a, each rounded once to
+    fp32: `gn_affine_kernel`'s merge of its blocks. Differentiable in the
+    means, the M2s, scale and bias (the counts are constants)."""
+    counts = moments[..., 0].detach()
+    n = counts.sum(0)
+    mean = sum(counts[k] * moments[k, ..., 1] for k in range(moments.shape[0])) / n
+    m2 = sum(moments[k, ..., 2] + counts[k] * (moments[k, ..., 1] - mean).square()
+             for k in range(moments.shape[0]))
+    inv = 1.0 / torch.sqrt((m2 / n).clamp(min=0.0) + eps)
+    bsz, groups = mean.shape
+    av = inv[..., None] * scale.double().reshape(groups, -1)
+    s = bias.double().reshape(groups, -1) - mean[..., None] * av
+    return av.float().reshape(bsz, -1), s.float().reshape(bsz, -1)
+
+
+def affine_silu_conv_reference(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor,
+                               w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of `affine_silu_conv`: SiLU(x a + s) in fp32 rounded to
+    x's type, zero outside x's rows and columns, then the 3x3 conv with fp32
+    sums, plus the bias in fp32, cast once to x's type."""
+    n = x.float() * a[:, None, None, :] + s[:, None, None, :]
+    n = (n * torch.sigmoid(n)).to(x.dtype)
+    wf = w.to(x.dtype).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
+    out = F.conv2d(n.float().permute(0, 3, 1, 2), wf, padding=1).permute(0, 2, 3, 1)
+    return (out + b.float()).to(x.dtype)
 
 
 SM_COUNT = 132          # H100 SXM
@@ -127,6 +178,59 @@ def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, group
 
 
 group_affine.launches = 0
+
+
+def group_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """K4's statistics without their affine: (B, G, 3) fp64 (count, mean,
+    M2 = the sum of squared deviations) of x (B, H, W, C) per (batch,
+    group), for a band whose moments merge with other ranks'
+    (`affine_from_moments`). On a CUDA tensor the statistics kernel and a
+    merge of its blocks' partials in fp64 (`gn_moments_kernel`); on a CPU
+    tensor `moments_reference`. Differentiable in x: the backward is the
+    plain version's VJP."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_moments: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"group_moments: unsupported dtype {x.dtype}")
+    if x.ndim != 4 or groups <= 0 or x.shape[3] % groups:
+        raise ValueError(f"group_moments: x {tuple(x.shape)} in {groups} groups")
+    _build.require_contiguous("group_moments", x)
+    _build.record("group_moments", x, groups)
+    return _GroupMoments.apply(x, groups)
+
+
+class _GroupMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.save_for_backward(x)
+        ctx.groups = groups
+        if x.device.type == "cpu":
+            return moments_reference(x, groups)
+        return _launch_moments(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups = ctx.groups
+        (gx,) = _build.plain_vjp(lambda x: moments_reference(x, groups), ctx.saved_tensors,
+                                 ctx.needs_input_grad[:1], g)
+        return gx, None
+
+
+def _launch_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
+    bsz, h, wd, c = x.shape
+    n_blocks, ppb, vec = stats_plan(h * wd, c, x.dtype, aligned=x.data_ptr() % 16 == 0)
+    part = torch.empty((bsz, n_blocks, groups, 2), dtype=torch.float64, device=x.device)
+    mom = torch.empty((bsz, groups, 3), dtype=torch.float64, device=x.device)
+    lib = _build.load("gn_conv")
+    err = lib.xm_gn_moments(_build.ptr(x), _build.ptr(part), _build.ptr(mom), bsz, h * wd, c,
+                            groups, n_blocks, ppb, vec, int(x.dtype == torch.bfloat16),
+                            _build.stream(x.device))
+    _build.check(err, "group_moments")
+    group_moments.launches += 1
+    return mom
+
+
+group_moments.launches = 0
 
 
 def kernel_params(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
@@ -211,7 +315,63 @@ class _GnSiluConv(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def affine_silu_conv(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor, params=None) -> torch.Tensor:
+    """K4's conv given its affine: SiLU(x a + s) -> 3x3 SAME conv + bias, the
+    activation zero outside x's rows and columns. x (B, H, W, C) fp32 or
+    bf16, contiguous (a band with its neighbours' raw edge rows); a, s (B,
+    C) fp32; w, b and `params` as `gn_silu_conv` takes them. Kernel K4's
+    conv on CUDA tensors, `affine_silu_conv_reference` on CPU ones;
+    differentiable in x, a, s, w and b (the plain version's VJP)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"affine_silu_conv: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"affine_silu_conv: unsupported dtype {x.dtype}")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"affine_silu_conv: x {tuple(x.shape)} w {tuple(w.shape)}")
+    bsz, c, cout = x.shape[0], x.shape[3], w.shape[3]
+    if tuple(w.shape[:3]) != (3, 3, c) or tuple(a.shape) != (bsz, c) \
+            or tuple(s.shape) != (bsz, c) or tuple(b.shape) != (cout,):
+        raise ValueError(f"affine_silu_conv: x {tuple(x.shape)} a {tuple(a.shape)} "
+                         f"s {tuple(s.shape)} w {tuple(w.shape)} b {tuple(b.shape)}")
+    if a.dtype != torch.float32 or s.dtype != torch.float32:
+        raise TypeError("affine_silu_conv: a and s must be fp32")
+    if any(t.device != x.device for t in (a, s, w, b)):
+        raise ValueError("affine_silu_conv: all inputs must be on one device")
+    _build.require_contiguous("affine_silu_conv", x, a, s)
+    _build.record("affine_silu_conv", x, a, s, w, b)
+    return _AffineSiluConv.apply(x, a, s, w, b, params)
+
+
+class _AffineSiluConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, s, w, b, params):
+        ctx.save_for_backward(x, a, s, w, b)
+        if x.device.type == "cpu":
+            return affine_silu_conv_reference(x, a, s, w, b)
+        out = _conv(x, a, s, w, b, params)
+        affine_silu_conv.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _build.plain_vjp(affine_silu_conv_reference, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:5], g)
+        return (*grads, None)
+
+
+affine_silu_conv.launches = 0
+
+
 def _launch(x, scale, bias, w, b, groups, eps, params) -> torch.Tensor:
+    a, s = group_affine(x, scale, bias, groups, eps)
+    out = _conv(x, a, s, w, b, params)
+    gn_silu_conv.launches += 1
+    return out
+
+
+def _conv(x, a, s, w, b, params) -> torch.Tensor:
+    """The conv kernel on x with the affine (a, s)."""
     c, cout = x.shape[3], w.shape[3]
     bsz, h, wd, _ = x.shape
     if params is None:
@@ -222,7 +382,6 @@ def _launch(x, scale, bias, w, b, groups, eps, params) -> torch.Tensor:
             or wk.device != x.device or bf.device != x.device:
         raise ValueError(f"gn_silu_conv: params {tuple(wk.shape)} {wk.dtype} {bf.dtype} are "
                          f"not kernel_params of w {tuple(w.shape)} for {x.dtype}")
-    a, s = group_affine(x, scale, bias, groups, eps)
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.load("gn_conv")
     args = (_build.ptr(x), _build.ptr(a), _build.ptr(s), _build.ptr(wk), _build.ptr(bf),
@@ -234,7 +393,6 @@ def _launch(x, scale, bias, w, b, groups, eps, params) -> torch.Tensor:
     else:
         err = lib.xm_gn_silu_conv_f32(*args, _build.stream(x.device))
     _build.check(err, "gn_silu_conv")
-    gn_silu_conv.launches += 1
     return out
 
 
@@ -248,7 +406,9 @@ def _bind(lib):
         + [ctypes.c_void_p]
     lib.xm_gn_affine.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.xm_gn_silu_conv_f32, lib.xm_gn_silu_conv_bf16, lib.xm_gn_affine):
+    lib.xm_gn_moments.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    for fn in (lib.xm_gn_silu_conv_f32, lib.xm_gn_silu_conv_bf16, lib.xm_gn_affine,
+               lib.xm_gn_moments):
         fn.restype = ctypes.c_int
 
 

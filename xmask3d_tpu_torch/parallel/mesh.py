@@ -21,8 +21,9 @@ identity, and nothing is communicated.
 of one model group are consecutive. Once a mesh is made, the functions
 above work over its data group: the ranks of one model group hold the same
 rows, so a sum over the world would count them `model` times. The model
-group is what `parallel/tensor.py`'s layers reduce over. Activation
-sharding (`shard_spatial`) is not here (ROADMAP A 3).
+group is what `parallel/tensor.py`'s layers reduce over, and what
+`parallel/spatial.py` splits the SD towers' maps over by rows
+(`activation_sharding`, `shard_spatial`).
 """
 
 from __future__ import annotations

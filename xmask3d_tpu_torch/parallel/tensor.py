@@ -21,6 +21,18 @@ collectives themselves (Megatron's layout), over the mesh's model group
 Each layer holds the mesh it was cut for and communicates over its model
 group; the models themselves know nothing of the mesh.
 
+In a row band of `parallel/spatial.py` (`activation_sharding` on the same
+model group) the layers follow Megatron's sequence parallelism (Korthikanti
+et al. 2022, "Reducing Activation Recomputation in Large Transformer
+Models"): the model gathers the rows before a column-parallel group
+(`spatial.reads_all_rows`; the backward a reduce-scatter, which takes `f`'s
+place, so a column-parallel layer makes no `f` of its own there, and one
+that gathers its output sums the bands' gradients before taking its
+slice); `RowParallelLinear` reduce-scatters its sums to the band (the
+backward an all-gather); `GatheredLinear` takes an all-to-all, (all rows,
+the rank's features) -> (the rank's rows, all features), 1/m of the
+all-gather's bytes. The time embedding's projection, (B, C), has no rows.
+
 The slices follow the heads and the packing: an attention's q/k/v take the
 columns of the rank's heads (of each of q, k and v in CLIP's packed
 `in_proj`), so attention (kernel K2 in the SD UNet) runs on the rank's
@@ -43,6 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from xmask3d_tpu_torch.parallel import spatial
 from xmask3d_tpu_torch.parallel.mesh import Mesh, current_mesh
 
 # the JAX rule set's name keys (xmask3d_tpu/parallel/mesh.py:56-86)
@@ -80,35 +93,9 @@ def param_sharding_rules(path: Union[str, Sequence], shape: Sequence[int], mesh:
 # ---------------------------------------------------------------------------
 
 
-def _all_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.model)]
-    dist.all_gather(parts, x, group=mesh.model_group)
-    return torch.cat(parts, dim=dim)
-
-
-def _own_slice(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    n = x.shape[dim] // mesh.model
-    return x.narrow(dim, mesh.model_rank * n, n).contiguous()
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity; the backward sums the gradient over the model group."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.mesh.model_group)
-        return g, None
-
-
 class _ReduceFromModel(torch.autograd.Function):
-    """Sum over the model group; the backward is the identity."""
+    """Sum over the model group; the backward is the identity (Megatron's
+    `g`). The other collectives are `parallel/spatial.py`'s."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -119,33 +106,6 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
-
-
-class _GatherFromModel(torch.autograd.Function):
-    """The ranks' slices concatenated on the last dim; the backward takes
-    the rank's slice."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _all_gather(x, -1, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _own_slice(g, -1, ctx.mesh), None
-
-
-class _ScatterToModel(torch.autograd.Function):
-    """The rank's slice of the last dim; the backward all-gathers."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _own_slice(x, -1, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather(g, -1, ctx.mesh), None
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +175,11 @@ class ColumnParallelLinear(_ParallelLinear):
         self.packs, self.gather = packs, gather
 
     def forward(self, x):
-        y = F.linear(_CopyToModel.apply(x, self.mesh), self.weight, self.bias)
-        return _GatherFromModel.apply(y, self.mesh) if self.gather else y
+        if spatial.current_band() is not None:
+            y = F.linear(x, self.weight, self.bias)
+            return spatial.gather_rows(y, dim=-1) if self.gather else y
+        y = F.linear(spatial.CopyToGroup.apply(x, self.mesh), self.weight, self.bias)
+        return spatial.AllGather.apply(y, self.mesh, -1) if self.gather else y
 
 
 class RowParallelLinear(_ParallelLinear):
@@ -234,8 +197,12 @@ class RowParallelLinear(_ParallelLinear):
 
     def forward(self, x):
         if not self.parallel_input:
-            x = _ScatterToModel.apply(x, self.mesh)
-        y = _ReduceFromModel.apply(F.linear(x, self.weight), self.mesh)
+            x = spatial.OwnPart.apply(x, self.mesh, -1)
+        y = F.linear(x, self.weight)
+        if self.parallel_input and spatial.current_band() is not None:
+            y = spatial.scatter_rows(y)
+        else:
+            y = _ReduceFromModel.apply(y, self.mesh)
         return y if self.bias is None else y + self.bias
 
 
@@ -252,7 +219,9 @@ class GatheredLinear(_ParallelLinear):
         return {}
 
     def forward(self, x):
-        return F.linear(_GatherFromModel.apply(x, self.mesh), self.weight, self.bias)
+        if spatial.current_band() is not None:
+            return F.linear(spatial.all_to_all_rows(x), self.weight, self.bias)
+        return F.linear(spatial.AllGather.apply(x, self.mesh, -1), self.weight, self.bias)
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,15 @@ of tensors on the chosen device with validity masks, and `hierarchy` is a
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from xmask3d_tpu_torch.device import resolve_device
 from xmask3d_tpu_torch.ops.sparse_conv import build_hierarchy, stack_hierarchies
+from xmask3d_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -67,8 +67,7 @@ def pack_targets(label_2d: np.ndarray, max_targets: int):
 
 def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
                   grid_jitter_rng=None, hierarchy: bool = True, device_hierarchy: bool = False,
-                  builder: str = "native", times: Optional[Dict[str, float]] = None
-                  ) -> Dict[str, Any]:
+                  builder: str = "native") -> Dict[str, Any]:
     """Pad and stack view samples into a fixed-shape batch of tensors on
     `device` (the GPU unless "cpu" is asked for). `grid_jitter_rng` (a numpy
     RandomState; training only) shifts the whole batch's voxel coords by
@@ -82,8 +81,8 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
     zero-padded, and `voxel_num` (B,) int32, and the model builds the
     hierarchy on the device (`ops/hierarchy_device.py`). Without
     `hierarchy` neither is in the batch: scene reuse runs no per-view 3D
-    pass. With `times`, the seconds spent building hierarchies are added to
-    its "hierarchy" entry."""
+    pass. Each hierarchy build is the span `xm3d.view.hierarchy`
+    (`utils/spans.py`)."""
     device = resolve_device(device)
     jitter = None if grid_jitter_rng is None \
         else grid_jitter_rng.randint(0, 16, size=(1, 3)).astype(np.int32)
@@ -102,10 +101,8 @@ def collate_views(samples: List[ViewSample], caps: Capacities, device=None,
             vox_coords.append(_pad1(coords, v))
             vox_num.append(np.int32(len(coords)))
         elif hierarchy:
-            t0 = time.perf_counter()
-            hs.append(build_hierarchy(coords, caps.level_caps(), builder=builder))
-            if times is not None:
-                times["hierarchy"] = times.get("hierarchy", 0.0) + time.perf_counter() - t0
+            with span("xm3d.view.hierarchy"):
+                hs.append(build_hierarchy(coords, caps.level_caps(), builder=builder))
         vox_feats.append(_pad1(s.voxel_feats.astype(np.float32), v))
         pv = np.zeros((p,), bool)
         pv[: min(len(s.inds_reconstruct), p)] = True

@@ -59,6 +59,7 @@ from xmask3d_tpu_torch.engine.infer import (
 )
 from xmask3d_tpu_torch.parallel.mesh import all_reduce_acc, init_distributed, scenes_of_rank
 from xmask3d_tpu_torch.utils.logging import get_logger
+from xmask3d_tpu_torch.utils.spans import collect, span
 
 logger = get_logger()
 STREAMS = ("pred", "pred_2d", "pred_3d")
@@ -157,8 +158,9 @@ def build_serving_model(cfg, tiny: bool = False, device=None, fused_gn: bool = F
     return model
 
 
-# the host stages of a view in `run_scene`, in order; "collate" leaves out
-# the hierarchy build, which has its own line
+# the host stages of a view in `run_scene`, in order, each the span
+# `xm3d.view.<stage>`; "collate" leaves out the hierarchy build (its span
+# nests inside), which has its own line
 STAGES = ("collate", "hierarchy", "copy_in", "replay", "d2h", "nearest_covered_match",
           "route_2d", "votes")
 
@@ -172,47 +174,47 @@ def run_scene(scene, infer_step, route_2d, statics, caps, num_classes, device=No
     `builder`, "native" or "numpy") and copied in. With `record`, it is
     filled with the view rows that voted ("kept"), each stream's vote count
     ("counter") and each view's host seconds by stage ("host_seconds",
-    one list a stage of `STAGES`; on CUDA the device work a stage launches
-    is waited for inside it)."""
+    one list a stage of `STAGES`, gathered from the stages' spans by
+    `utils/spans.py` `collect`; on CUDA the device work a stage launches is
+    waited for inside it)."""
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     voters = {k: SceneVoter(len(scene["coords"]), num_classes) for k in STREAMS}
     seconds: Dict[str, List[float]] = {k: [] for k in STAGES}
     kept = 0
     for view in scene["views"]:
-        t = {"hierarchy": 0.0}
-        t0 = time.perf_counter()
-        batch = collate_views([view["sample"]], caps, device="cpu", builder=builder, times=t)
-        pv = batch["point_valid"][0].numpy()
-        t1 = time.perf_counter()
-        batch = tree_map(lambda x: x.to(dev), batch)
-        sync()
-        t2 = time.perf_counter()
-        preds = infer_step(batch, statics)
-        sync()
-        t3 = time.perf_counter()
-        covered = preds["covered_2d"][0].cpu().numpy()
-        t4 = time.perf_counter()
-        # view row r holds the r-th visible scene point; vote by the mask
-        rows, sids, keep = view_scene_ids(view["visible"], pv)
-        coords_p = np.zeros((pv.shape[0], 3), np.float32)
-        coords_p[rows] = scene["coords"][sids]
-        match = nearest_covered_match(coords_p, covered, pv)
-        t5 = time.perf_counter()
-        pred_2d = route_2d(preds["feat_2d"], torch.from_numpy(match)[None].to(dev),
-                           preds["binary_pred"].float(), preds["text"], preds["logit_scale"])
-        sync()
-        t6 = time.perf_counter()
-        arrs = {k: a[0].cpu().numpy() for k, a in (("pred", preds["pred"]), ("pred_2d", pred_2d),
-                                                   ("pred_3d", preds["pred_3d"]))}
-        t7 = time.perf_counter()
-        for key, arr in arrs.items():
-            voters[key].add_view(sids[keep], arr[rows[keep]])
-        kept += int(keep.sum())
-        t8 = time.perf_counter()
-        for stage, dt in zip(STAGES, (t1 - t0 - t["hierarchy"], t["hierarchy"], t2 - t1,
-                                      t3 - t2, t4 - t3 + t7 - t6, t5 - t4, t6 - t5, t8 - t7)):
-            seconds[stage].append(dt)
+        with collect() as t:
+            with span("xm3d.view.collate"):
+                batch = collate_views([view["sample"]], caps, device="cpu", builder=builder)
+                pv = batch["point_valid"][0].numpy()
+            with span("xm3d.view.copy_in"):
+                batch = tree_map(lambda x: x.to(dev), batch)
+                sync()
+            with span("xm3d.view.replay"):
+                preds = infer_step(batch, statics)
+                sync()
+            with span("xm3d.view.d2h"):
+                covered = preds["covered_2d"][0].cpu().numpy()
+            with span("xm3d.view.nearest_covered_match"):
+                # view row r holds the r-th visible scene point; vote by the mask
+                rows, sids, keep = view_scene_ids(view["visible"], pv)
+                coords_p = np.zeros((pv.shape[0], 3), np.float32)
+                coords_p[rows] = scene["coords"][sids]
+                match = nearest_covered_match(coords_p, covered, pv)
+            with span("xm3d.view.route_2d"):
+                pred_2d = route_2d(preds["feat_2d"], torch.from_numpy(match)[None].to(dev),
+                                   preds["binary_pred"].float(), preds["text"],
+                                   preds["logit_scale"])
+                sync()
+            with span("xm3d.view.d2h"):
+                arrs = {k: a[0].cpu().numpy() for k, a in (
+                    ("pred", preds["pred"]), ("pred_2d", pred_2d), ("pred_3d", preds["pred_3d"]))}
+            with span("xm3d.view.votes"):
+                for key, arr in arrs.items():
+                    voters[key].add_view(sids[keep], arr[rows[keep]])
+                kept += int(keep.sum())
+        for stage in STAGES:
+            seconds[stage].append(t.get(f"xm3d.view.{stage}", 0.0))
     if record is not None:
         record["kept"] = kept
         record["counter"] = {k: int(v.counter.sum()) for k, v in voters.items()}

@@ -36,6 +36,7 @@ from xmask3d_tpu_torch.parallel.mesh import (
     all_reduce_sum_, current_mesh, data_size, model_size, rows_of_rank)
 from xmask3d_tpu_torch.parallel.tensor import sharded_tensors
 from xmask3d_tpu_torch.utils.lr_schedule import cosine_lr, poly_lr
+from xmask3d_tpu_torch.utils.spans import span
 
 GROUPS = ("3d", "others")
 
@@ -192,29 +193,37 @@ def make_train_step(loss_weight: Dict[str, float]):
     unless given: this rank's rows of the global batch's), weighted total,
     backward, AdamW update; advances `state.step`. Metrics are detached
     device tensors: `loss_total`, every loss term and the IoU histograms
-    (of the global batch: summed over the ranks), and `grad_norm_<group>`."""
+    (of the global batch: summed over the ranks), and `grad_norm_<group>`.
+    The step's stages are `utils/spans.py` spans (`xm3d.train.*`), seen
+    under a profiler."""
 
     def train_step(state: TrainState, batch, statics, contra_on: float,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        model, c = state.model, state.model.cfg
-        if draws is None:
-            b, t = batch["target_labels"].shape
-            draws = rows_of_rank(point_draws(
-                state.generator, c.dec_layers + 1, b * data_size(), t, c.num_points,
-                c.oversample_ratio, c.importance_sample_ratio, device=batch["img"].device),
-                dim=1)
-        losses, _ = model(batch, statics, train=True, draws=draws)
-        total = weight_losses(losses, loss_weight, c.class_weight, c.mask_weight,
-                              c.dice_weight, contra_on=contra_on)
-        total.backward()
-        norms = state.optimizer.grad_norms()
-        state.optimizer.step(state.step)
-        state.step += 1
-        metrics = {"loss_total": total.detach()}
-        metrics.update({k: v.detach() for k, v in losses.items()})
-        # every rank's share of the losses and histograms, added up
-        all_reduce_sum_(list(metrics.values()))
-        metrics.update({f"grad_norm_{g}": n for g, n in norms.items()})
-        return metrics
+        with span("xm3d.train.step"):
+            model, c = state.model, state.model.cfg
+            if draws is None:
+                b, t = batch["target_labels"].shape
+                with span("xm3d.train.draws"):
+                    draws = rows_of_rank(point_draws(
+                        state.generator, c.dec_layers + 1, b * data_size(), t, c.num_points,
+                        c.oversample_ratio, c.importance_sample_ratio,
+                        device=batch["img"].device), dim=1)
+            with span("xm3d.train.forward"):
+                losses, _ = model(batch, statics, train=True, draws=draws)
+                total = weight_losses(losses, loss_weight, c.class_weight, c.mask_weight,
+                                      c.dice_weight, contra_on=contra_on)
+            with span("xm3d.train.backward"):
+                total.backward()
+            with span("xm3d.train.optimizer"):
+                norms = state.optimizer.grad_norms()
+                state.optimizer.step(state.step)
+                state.step += 1
+            with span("xm3d.train.metrics"):
+                metrics = {"loss_total": total.detach()}
+                metrics.update({k: v.detach() for k, v in losses.items()})
+                # every rank's share of the losses and histograms, added up
+                all_reduce_sum_(list(metrics.values()))
+                metrics.update({f"grad_norm_{g}": n for g, n in norms.items()})
+            return metrics
 
     return train_step

@@ -40,6 +40,7 @@ from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
 from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
 from xmask3d_tpu_torch.parallel.mesh import global_sum
 from xmask3d_tpu_torch.utils.metrics import intersection_and_union
+from xmask3d_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +218,8 @@ class XMask3D(nn.Module):
         coordinates (`ops/point_sample.py` `point_draws`). Returns (losses,
         outputs); `metric_*` entries are IoU histograms, not losses."""
         c = self.cfg
-        outputs = self._trunk(batch, statics)
+        with span("xm3d.forward.trunk"):
+            outputs = self._trunk(batch, statics)
         caption_embed = self.embed_captions(batch["caption_tokens"])
         cat = self.category_embed(statics["text_embed_train"])
         text_embed, null_embed = cat["text_embed"], cat["null_embed"]

@@ -6,7 +6,8 @@ step's cost matrices, all layers and samples at once, to the host in one
 transfer and solves each with `scipy.optimize.linear_sum_assignment`, the
 reference's own solver. Non-finite costs are first made large finite ones,
 as the JAX package does, so a diverged step reports a NaN loss instead of
-raising.
+raising. The copy (the training step's one synchronisation), the
+solves and the copy back are the `xm3d.matcher` span (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment as _scipy_lsa
 
+from xmask3d_tpu_torch.utils.spans import span
+
 
 def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     """cost (..., T, Q) with T <= Q -> (..., T) int64 on cost's device: the
@@ -22,10 +25,11 @@ def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     *lead, t, q = cost.shape
     if t > q:
         raise ValueError(f"linear_sum_assignment: {t} rows > {q} columns")
-    host = np.nan_to_num(cost.detach().float().cpu().numpy().reshape(-1, t, q),
-                         nan=1e9, posinf=1e9, neginf=-1e9)
-    cols = np.empty((host.shape[0], t), np.int64)
-    for i, c in enumerate(host):
-        rows, col = _scipy_lsa(c)
-        cols[i, rows] = col
-    return torch.from_numpy(cols.reshape(*lead, t)).to(cost.device)
+    with span("xm3d.matcher"):
+        host = np.nan_to_num(cost.detach().float().cpu().numpy().reshape(-1, t, q),
+                             nan=1e9, posinf=1e9, neginf=-1e9)
+        cols = np.empty((host.shape[0], t), np.int64)
+        for i, c in enumerate(host):
+            rows, col = _scipy_lsa(c)
+            cols[i, rows] = col
+        return torch.from_numpy(cols.reshape(*lead, t)).to(cost.device)

@@ -119,8 +119,11 @@ Phases, each of which raises on failure:
      records every kernel call of its forward pass, which are held against
      their plain versions (bf16 and fp32); one call of each kernel is taken
      back through its autograd Function and held against the plain
-     version's autograd on the same inputs; three counted steps check the
-     launches a step, the variants, every loss, each trainable group's
+     version's autograd on the same inputs (K1's through the gather form of
+     its backward, against the plain version's autograd in fp32, within the
+     forward's tolerance); three counted steps check the launches a step,
+     that every K1 call's backward took the gather form, the variants,
+     every loss, each trainable group's
      gradient (both 3D UNets apart), that no frozen parameter has a
      gradient, and that the masters and the BatchNorm statistics moved;
      with the config's `remat_backbone` on, the UNet's K2 calls launch again
@@ -131,7 +134,7 @@ Phases, each of which raises on failure:
      mode's run-to-run spread of the gradient; two steps each way
      for ms a step; one step at batch 8 each way for peak bytes (remat off
      may not fit, which is logged); a profiled step each way gives the
-     device's busy time and each kernel's forward and plain-backward
+     device's busy time and each kernel's forward and backward
      device ms;
      `ddp` (`ddp_phase`): data parallelism through `parallel/mesh.py`: a
      step with a one-process NCCL group bit for bit the step without one;
@@ -245,7 +248,10 @@ def expected_train_launches(mc) -> dict:
     """A training step's launches: the forward's, and with `remat_backbone`
     the UNet's attention again in the backward (each checkpointed
     SpatialTransformer recomputes its two K2 calls; the VAE's blocks are not
-    checkpointed there, since none of their inputs needs a gradient)."""
+    checkpointed there, since none of their inputs needs a gradient). K1's
+    backward launches its own kernels through the library, not through the
+    wrapper, so it adds no K1 launch: each K1 call takes one gather-form
+    backward (`sparse_conv.backward_calls`)."""
     n = expected_launches(mc)
     if mc.remat_backbone:
         n["flash_attention"] += n["flash_attention"] - 2  # all but the VAE's two
@@ -1775,9 +1781,9 @@ def train_batch(cfg, caps, seed, device=None, batch=None):
 
 def pick_backward_call(name, calls):
     """The recorded call of each kernel whose backward is checked: K1's
-    first 27-tap conv with a live-row mask, K2's longest self-attention of
-    the narrowest heads (the SD UNet's 4096 tokens at d 40), K3's first
-    call."""
+    first 27-tap conv with a live-row mask (a level's own `kmap3`, whose
+    transpose is SAME_LEVEL), K2's longest self-attention of the narrowest
+    heads (the SD UNet's 4096 tokens at d 40), K3's first call."""
     if name == "sparse_conv":
         return next(c for c in calls if c[4] is not None and c[1].shape[0] == 27)
     if name == "flash_attention":
@@ -1789,30 +1795,45 @@ def pick_backward_call(name, calls):
 def backward_check(table, name, call, dtype):
     """The call's kernel output taken back through the wrapper's Function
     under a seeded cotangent, against torch.autograd.grad of the plain
-    version on the same inputs: (max abs error, worst error / tolerance)."""
+    version on the same inputs: (max abs error, worst error / tolerance).
+    K1's call passes its map's transpose (SAME_LEVEL), so its backward is
+    the gather form (`k1_dgrad_*`, `k1_wgrad_*` in bf16), held to the plain
+    version's autograd on the same values in fp32 within the forward's
+    tolerance: the plain VJP in bf16 rounds each tap's feature gradient,
+    the kernels once."""
     import torch
+
+    from xmask3d_tpu_torch.ops import sparse_conv
 
     k = table[name]
     tol = TOL[dtype]
     if dtype == "fp32":
         call = as_fp32(call)
     diff = [i for i, a in enumerate(call) if torch.is_tensor(a) and a.is_floating_point()]
+    kwargs = {"transpose": sparse_conv.SAME_LEVEL} if name == "sparse_conv" else {}
 
-    def run(fn):
+    def run(fn, args, **kw):
         args = [a.detach().clone().requires_grad_() if i in diff else a
-                for i, a in enumerate(call)]
-        return fn(*args), [args[i] for i in diff]
+                for i, a in enumerate(args)]
+        return fn(*args, **kw), [args[i] for i in diff]
 
-    n = k["fn"].launches
-    out, xs = run(k["fn"])
+    n, forms = k["fn"].launches, dict(sparse_conv.sparse_conv.backward_calls)
+    out, xs = run(k["fn"], call, **kwargs)
     gen = torch.Generator(device=out.device).manual_seed(0)
     ct = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
     got = torch.autograd.grad(out, xs, ct)
-    ref_out, ys = run(k["plain"])
-    ref = torch.autograd.grad(ref_out, ys, ct)
+    if name == "sparse_conv":
+        ref_out, ys = run(k["plain"], as_fp32(call))
+        ref = torch.autograd.grad(ref_out, ys, ct.float())
+    else:
+        ref_out, ys = run(k["plain"], call)
+        ref = torch.autograd.grad(ref_out, ys, ct)
     torch.cuda.synchronize()
     if k["fn"].launches != n + 1:
         raise AssertionError(f"{name}: the backward launched the kernel")
+    if name == "sparse_conv" and sparse_conv.sparse_conv.backward_calls["kernel"] != \
+            forms["kernel"] + 1:
+        raise AssertionError("sparse_conv: the backward did not take the gather form")
     err, worst = 0.0, 0.0
     for g, r in zip(got, ref):
         if not torch.isfinite(g.float()).all():
@@ -1848,8 +1869,8 @@ def group_norms(model, labels, store):
 def profile_step(step_fn) -> dict:
     """One more training step under torch.profiler: device busy ms and idle
     share, kernels, and per kernel the device ms of its forward launches
-    and of its plain backward (the device work under the Function's
-    backward node)."""
+    and of its backward (the device work under the Function's backward
+    node)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1889,7 +1910,7 @@ def profile_step(step_fn) -> dict:
                     backward[k]["kernels"] += kernels_under(e)
     return {"phase": "train_profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
             "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
-            "forward_device_ms": forward, "plain_backward": backward,
+            "forward_device_ms": forward, "backward": backward,
             "top": [[n[:80], ms] for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
 
 
@@ -1906,6 +1927,7 @@ def train_phase(cfg, caps, table) -> None:
         create_train_state, make_optimizer, make_train_step)
     from xmask3d_tpu_torch.models.layers import set_remat
     from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm
+    from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
 
     t0 = time.time()
     model = build_train_model(cfg, seed=0)
@@ -1979,6 +2001,7 @@ def train_phase(cfg, caps, table) -> None:
     state.optimizer.step = step_with_norms
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    forms = dict(sparse_conv.backward_calls)
     step_ms, variants, step_metrics = [], {}, []
     with counting_variants(table, variants):
         for b in batches[1:1 + TRAIN_STEPS]:
@@ -1991,15 +2014,19 @@ def train_phase(cfg, caps, table) -> None:
     losses = [{k: float(v) for k, v in m.items() if not k.startswith("metric_")}
               for m in step_metrics]
     counts = launches()
+    forms = {k: n - forms[k] for k, n in sparse_conv.backward_calls.items()}
     peak = torch.cuda.max_memory_allocated()
     log({"phase": "train_steps", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "step_ms": step_ms,
          "mean_step_ms": sum(step_ms) / TRAIN_STEPS, "peak_bytes": peak, "launches": counts,
-         "expected_per_step": expected, "variants": variants, "losses": losses,
-         "grad_norms": norms})
+         "expected_per_step": expected, "k1_backward_forms": forms, "variants": variants,
+         "losses": losses, "grad_norms": norms})
     for name, n in expected.items():
         if counts[name] != n * TRAIN_STEPS:
             raise AssertionError(f"{name}: {counts[name]} launches over {TRAIN_STEPS} steps, "
                                  f"expected {n * TRAIN_STEPS}")
+    if forms != {"kernel": expected["sparse_conv"] * TRAIN_STEPS, "plain": 0}:
+        raise AssertionError(f"K1's backwards by form {forms}: every K1 call of a step should "
+                             "take the gather form")
     check_variants(variants, expected, TRAIN_STEPS)
     for i, (ls, nm) in enumerate(zip(losses, norms)):
         bad = [k for k, v in ls.items() if not math.isfinite(v)]
@@ -2033,9 +2060,10 @@ def train_phase(cfg, caps, table) -> None:
 
 # autograd nodes whose CUDA backward adds with atomics in the default mode:
 # gather's (a scatter-add), advanced indexing's (index_put_ with accumulate),
-# and the kernels' Functions, whose plain VJPs run gathers inside
+# and K3's Function, whose plain VJP runs gathers inside (K1's model calls
+# take the gather form, which adds in a fixed order)
 ATOMIC_BACKWARD = ("GatherBackward", "IndexBackward", "IndexSelectBackward",
-                   "EmbeddingBackward", "_SparseConvBackward", "_DeformAttnBackward")
+                   "EmbeddingBackward", "_DeformAttnBackward")
 
 
 def backward_nodes(loss) -> dict:
@@ -2057,7 +2085,7 @@ def backward_nodes(loss) -> dict:
 def remat_phase(model, state, step, batches, statics, cfg, caps, labels) -> None:
     """`remat_backbone` on the card. One forward and backward of batch 2
     with remat off and on, the same weights, batch and point draws, under
-    `torch.use_deterministic_algorithms` (the plain backward's scatter-adds
+    `torch.use_deterministic_algorithms` (the plain backwards' scatter-adds
     and the point sampler's backward otherwise add in a run-dependent
     order): the losses and every leaf's gradient bit-equal, the launches
     the forward's plus, with remat, the UNet's K2 calls recomputed. Then
@@ -2066,8 +2094,8 @@ def remat_phase(model, state, step, batches, statics, cfg, caps, labels) -> None
     reads its cause: whether the two runs' losses are equal, the gradient
     norms of the leaves that move most against the median leaf's, and the
     backward's nodes that add with atomics on the card (a gather's backward
-    is a scatter-add; the kernels' plain VJPs run gathers inside their
-    Functions). Then two optimizer steps each way (off,
+    is a scatter-add; K3's plain VJP runs gathers inside its Function).
+    Then two optimizer steps each way (off,
     on, on, off) for ms a step and peak bytes, and one step at batch 8 each
     way for peak bytes (remat off may not fit: that is logged, not
     raised)."""

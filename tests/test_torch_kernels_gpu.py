@@ -547,6 +547,62 @@ def test_sparse_conv_backward(cuda, kernel, cin, cout):
             lambda f, x, wt, b: f(x, wt, kmap, bias=b, out_valid=valid), tol)
 
 
+# the model's shape classes of K1's gather-form backward: level 0's k3 convs
+# (C_out 96 takes the 96-wide weight-gradient tile), odd widths (scalar
+# staging on both operands), the fused k5 stem (weights only: the colours
+# take no gradient; packed (tap, channel) rows), a down conv through its
+# transposed map, and a deep 256 -> 256 level with few live rows
+K1_BACKWARD = [("kmap3", 96, 128), ("kmap3", 128, 96), ("kmap3", 13, 7), ("stem", 3, 64),
+               ("down", 32, 32), ("deep", 256, 256)]
+
+
+@pytest.mark.parametrize("kind,cin,cout", K1_BACKWARD)
+def test_sparse_conv_gather_backward(cuda, kind, cin, cout):
+    """A call with its map's transpose, B = 2, with bias and out_valid: its
+    backward launches `k1_dgrad_*` / `k1_wgrad_*` in bf16 (the plain
+    statement of the gather form in fp32), nothing through the wrapper, and
+    gives the same gradients on a second run bit for bit. They are held to
+    the plain version's VJP on the same values in fp32 (the plain VJP in
+    bf16 rounds each tap's feature gradient; the kernels round once)."""
+    rng = np.random.RandomState(cin + cout)
+    caps = (4096, 2048, 1024, 512, 256)
+    hs = [tsc.build_hierarchy(np.unique(rng.randint(0, 24, size=(3000, 3)).astype(np.int32),
+                                        axis=0), caps) for _ in range(2)]
+    h = tsc.stack_hierarchies(hs, cuda)
+    lv = h.levels
+    kmap, transpose, v_in, valid = {
+        "kmap3": (lv[0].kmap3, tsc.SAME_LEVEL, caps[0], lv[0].valid),
+        "stem": (h.kmap5, tsc.SAME_LEVEL, caps[0], lv[0].valid),
+        "down": (h.down[0], tsc.down_transposes(h)[0], caps[0], lv[1].valid),
+        "deep": (lv[3].kmap3, tsc.SAME_LEVEL, caps[3], lv[3].valid)}[kind]
+    feats = torch.from_numpy(rng.randn(2, v_in, cin).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(kmap.shape[1], cin, cout) / 8).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda)
+    ct = torch.from_numpy(rng.randn(2, kmap.shape[2], cout).astype(np.float32)).to(cuda)
+    need = (kind != "stem", True, True)
+    for dt, tol in DTYPES:
+        runs = []
+        for _ in range(2):
+            xs = [x.to(dt).clone().requires_grad_(n) for x, n in zip((feats, w, bias), need)]
+            n, before = tsc.sparse_conv.launches, dict(tsc.sparse_conv.backward_calls)
+            out = tsc.sparse_conv(xs[0], xs[1], kmap, bias=xs[2], out_valid=valid,
+                                  transpose=transpose)
+            out.backward(_noncontig(ct.to(dt)))
+            torch.cuda.synchronize()
+            assert tsc.sparse_conv.launches == n + 1
+            assert tsc.sparse_conv.backward_calls == {"kernel": before["kernel"] + 1,
+                                                      "plain": before["plain"]}
+            runs.append([x.grad for x, n in zip(xs, need) if n])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), "not deterministic"
+        ys = [x.to(dt).float().clone().requires_grad_(n) for x, n in zip((feats, w, bias), need)]
+        tsc.sparse_conv_reference(ys[0], ys[1], kmap, ys[2], valid).backward(ct.to(dt).float())
+        for i, (got, y) in enumerate(zip(runs[0], [y for y, n in zip(ys, need) if n])):
+            assert got.dtype == dt and torch.isfinite(got.float()).all(), i
+            err = float((got.float() - y.grad).abs().max())
+            assert err <= tol * max(1.0, float(y.grad.abs().max())), (dt, i, err)
+        torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("tq,tk,d,h", [(4096, 4096, 40, 8), (4096, 77, 40, 8)])
 def test_flash_attention_backward(cuda, tq, tk, d, h):
     """The SD UNet's self-attention (d 40 x 4096 keys) and its 77-key

@@ -67,6 +67,8 @@ from xmask3d_tpu_torch.engine.train_step import (
     make_train_step,
     weight_losses,
 )
+from xmask3d_tpu_torch.models.minkunet import _VARIANTS
+from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
 
 CONFIG = "configs/scannet/xmask3d_scannet_B15N4.yaml"
 REDUCED = {"arch_3d": "MinkUNet14A", "arch_binary_head": "MinkUNet14A", "mask_shape": [24, 32],
@@ -191,11 +193,13 @@ def jax_and_port_step(batch_np):
     p_opt = make_optimizer(port, pcfg.lr_3d, pcfg.lr_others, TOTAL_STEPS)
     p_state = create_train_state(port, p_opt)
     p_statics = {k: torch.from_numpy(np.asarray(v)) for k, v in statics.items()}
+    before = dict(sparse_conv.backward_calls)
     p_metrics = make_train_step(dict(pcfg.loss_weight))(
         p_state, to_port_batch(batch_np), p_statics, 1.0, draws=draws)
+    k1_backward = {k: n - before[k] for k, n in sparse_conv.backward_calls.items()}
     return {"jax": metrics, "port": p_metrics, "mu": mu, "stats": _flat(new.batch_stats),
             "state": p_state, "variables": variables, "batch_np": batch_np,
-            "statics": p_statics, "draws": draws}
+            "statics": p_statics, "draws": draws, "k1_backward": k1_backward}
 
 
 @pytest.fixture(scope="module")
@@ -214,6 +218,15 @@ def test_train_step_losses_match_jax(step_pair):
     assert float(want["loss_3d_contra"]) > 0, "contra term is zero: no gradient through it"
     for k in ("metric_train_inter", "metric_train_union"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
+def test_train_step_takes_k1s_gather_backward_on_every_call(step_pair):
+    """Every K1 call of the step (the fused k5 stem, then each MinkUNet's
+    four down convs and two k3 convs a residual block) carries its map's
+    transpose, so its backward is the gather form: none is the plain VJP."""
+    mc = step_pair["state"].model.cfg
+    calls = 1 + sum(4 + 2 * sum(_VARIANTS[a][1]) for a in (mc.arch_3d, mc.arch_binary_head))
+    assert step_pair["k1_backward"] == {"kernel": calls, "plain": 0}
 
 
 def _leaves(model):

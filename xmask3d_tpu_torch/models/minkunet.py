@@ -23,7 +23,9 @@ from torch import nn
 
 from xmask3d_tpu_torch.ops.brick_conv import brick_conv, from_brick, level_brick, to_brick
 from xmask3d_tpu_torch.ops.sparse_conv import (
+    SAME_LEVEL,
     SparseHierarchy,
+    down_transposes,
     sparse_conv,
     sparse_conv_transpose,
 )
@@ -93,10 +95,12 @@ class SparseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         nn.init.normal_(self.kernel, std=(2.0 / (num_offsets * out_ch)) ** 0.5)
 
-    def forward(self, x, kmap: Optional[torch.Tensor], out_valid=None, brick=None):
+    def forward(self, x, kmap: Optional[torch.Tensor], out_valid=None, brick=None,
+                transpose=None):
         """`brick`: the level's brick metadata when x is in the brick-dense
         layout (then `out_valid` is its slot validity); a k3 / k5 conv then
-        runs as `brick_conv`."""
+        runs as `brick_conv`. `transpose`: the map's transpose for K1's
+        backward (`sparse_conv`)."""
         w = self.kernel.to(x.dtype)
         if kmap is None:  # 1x1 conv == plain matmul on the same coord map
             out = x @ w[0]
@@ -105,7 +109,7 @@ class SparseConv(nn.Module):
             return out if out_valid is None else _zero_invalid(out, out_valid)
         if brick is not None and w.shape[0] in (27, 125):
             return brick_conv(x, w, brick[0], slot_valid=out_valid, bias=self.bias)
-        return sparse_conv(x, w, kmap, bias=self.bias, out_valid=out_valid)
+        return sparse_conv(x, w, kmap, bias=self.bias, out_valid=out_valid, transpose=transpose)
 
 
 class SparseConvTranspose(nn.Module):
@@ -134,8 +138,10 @@ class BasicBlock(nn.Module):
             self.downsample_norm = MaskedBatchNorm(planes)
 
     def forward(self, x, kmap3, valid, brick=None):
-        out = F.relu(self.norm1(self.conv1(x, kmap3, out_valid=valid, brick=brick), valid))
-        out = self.norm2(self.conv2(out, kmap3, out_valid=valid, brick=brick), valid)
+        out = F.relu(self.norm1(self.conv1(x, kmap3, out_valid=valid, brick=brick,
+                                           transpose=SAME_LEVEL), valid))
+        out = self.norm2(self.conv2(out, kmap3, out_valid=valid, brick=brick,
+                                    transpose=SAME_LEVEL), valid)
         residual = x
         if hasattr(self, "downsample_conv"):
             residual = self.downsample_norm(self.downsample_conv(x, None), valid)
@@ -211,11 +217,14 @@ class MinkUNet(nn.Module):
             x = _zero_invalid(from_brick(F.relu(self.bn0(x, sv0)), sor0), lv[0].valid)
         else:
             if stem_conv is None:
-                stem_conv = self.conv0(feats, h.kmap5, out_valid=lv[0].valid)
+                stem_conv = self.conv0(feats, h.kmap5, out_valid=lv[0].valid, transpose=SAME_LEVEL)
             x = F.relu(self.bn0(stem_conv, lv[0].valid))
         skips = [x]
+        # the down maps' transposes, for K1's backward (none without autograd)
+        down_t = down_transposes(h) if torch.is_grad_enabled() else (None,) * len(h.down)
         for s in range(4):
-            x = getattr(self, f"conv{s + 1}")(x, h.down[s], out_valid=lv[s + 1].valid)
+            x = getattr(self, f"conv{s + 1}")(x, h.down[s], out_valid=lv[s + 1].valid,
+                                              transpose=down_t[s])
             x = F.relu(getattr(self, f"bn{s + 1}")(x, lv[s + 1].valid))
             x = self._stage(x, self.layers[s], lv[s + 1], f"block{s + 1}")
             if s < 3:

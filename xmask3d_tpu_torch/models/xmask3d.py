@@ -37,7 +37,7 @@ from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm, bricks_enabled, m
 from xmask3d_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from xmask3d_tpu_torch.ops.hierarchy_device import build_hierarchy_on_device
 from xmask3d_tpu_torch.ops.hungarian import linear_sum_assignment
-from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
+from xmask3d_tpu_torch.ops.sparse_conv import SAME_LEVEL, sparse_conv
 from xmask3d_tpu_torch.parallel.mesh import global_sum
 from xmask3d_tpu_torch.utils.metrics import intersection_and_union
 from xmask3d_tpu_torch.utils.spans import span
@@ -165,7 +165,7 @@ class XMask3D(nn.Module):
             w34 = self.pc_decoder.MinkUNet_0.conv0.kernel
             w14 = self.pc_binary_head.MinkUNet_0.conv0.kernel
             stem = sparse_conv(feats, torch.cat([w34, w14], dim=-1).to(dt), h.kmap5,
-                               out_valid=h.levels[0].valid)
+                               out_valid=h.levels[0].valid, transpose=SAME_LEVEL)
             stem34, stem14 = stem.split([w34.shape[-1], w14.shape[-1]], dim=-1)
         implicit, pred_3d_vox = self.pc_decoder(feats, h, stem_conv=stem34)
         neg = torch.finfo(implicit.dtype).min

@@ -7,8 +7,13 @@ table `kmap` (-1 = no neighbour); transposed convs are parent gathers.
 
 Kernel offsets enumerate with the last axis fastest; odd kernels span
 -(k//2)..k//2 per axis and kernel 2 spans {0, 1}, in units of the level's
-tensor stride. `sparse_conv` is differentiable in feats, weights and bias:
-its backward is the plain version's VJP.
+tensor stride. `sparse_conv` is differentiable in feats, weights and bias.
+A call that carries its map's transpose (`transpose=`: `SAME_LEVEL` for a
+level's own `kmap3` / `kmap5`, `down_transposes(h)[s]` for `down[s]`) takes
+the gather form of the backward: the feature gradient is K1 itself on the
+output gradient through the transposed map, the weight gradient one
+gather-product kernel (`sparse_conv_backward_reference` is its plain
+statement). Any other call's backward is the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -251,6 +256,27 @@ def build_hierarchy(
     return out
 
 
+def down_transposes(h: SparseHierarchy) -> Tuple[torch.Tensor, ...]:
+    """The transpose of each stride-2 down map, for the gather form of its
+    backward: down_t[s][b, k, u] = up_parent[s][b, u] where up_octant[s][b, u]
+    is k, else -1, (B, 8, V_s) int32 (each voxel has one parent and one
+    octant). Built on the maps' device on first use and kept on `h`; built
+    again when `up_parent` or `up_octant` is replaced or written in place."""
+    leaves = (*h.up_parent, *h.up_octant)
+    versions = tuple(t._version for t in leaves)
+    kept = h.__dict__.get("_down_t")
+    if kept is not None and kept[1] == versions and all(a is b for a, b in zip(kept[0], leaves)):
+        return kept[2]
+    out = []
+    for parent, octant in zip(h.up_parent, h.up_octant):
+        taps = torch.arange(8, dtype=octant.dtype, device=octant.device)[None, :, None]
+        none = torch.full((), -1, dtype=torch.int32, device=parent.device)
+        out.append(torch.where(octant[:, None, :] == taps, parent[:, None, :].to(torch.int32),
+                               none).contiguous())
+    h.__dict__["_down_t"] = (leaves, versions, tuple(out))
+    return h.__dict__["_down_t"][2]
+
+
 def stack_hierarchies(hs: Sequence[HostHierarchy], device="cpu") -> SparseHierarchy:
     """Stack per-sample host hierarchies into one batched SparseHierarchy."""
 
@@ -320,6 +346,47 @@ def sparse_conv_reference(
     return out
 
 
+def sparse_conv_backward_reference(
+    g: torch.Tensor,  # (B, V_out, C_out)
+    feats: torch.Tensor,  # (B, V_in, C_in)
+    weights: torch.Tensor,  # (K, C_in, C_out)
+    kmap: torch.Tensor,  # (B, K, V_out) int32
+    transpose,  # SAME_LEVEL or (B, K, V_in) int32
+    bias: Optional[torch.Tensor] = None,
+    out_valid: Optional[torch.Tensor] = None,
+    needs: Sequence[bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gather form of `sparse_conv`'s VJP under cotangent g (the backward
+    kernels' contract), (dfeats, dweights, dbias), None where `needs` says
+    so; fp32 accumulation, each gradient cast once to its input's dtype.
+    Rows of g outside `out_valid` count as zero. With the map's transpose
+    (see `sparse_conv`), tap k's pairs (v, u) are tap k's pairs (u, v) of
+    the transposed map, so
+        dfeats[u] = sum_k g[kmap_t[k, u]] W[k]^T   (SAME_LEVEL: kmap_t[k] = kmap[K-1-k])
+        dW[k] = sum_v feats[kmap[k, v]]^T g[v]      db = sum_v g[v]
+    with gathers only. It equals the plain VJP up to summation order."""
+    gf = g.float()
+    if out_valid is not None:
+        gf = torch.where(out_valid[..., None], gf, torch.zeros((), device=gf.device))
+    w = weights.float()
+    b, v_in, c_in = feats.shape
+    df = dw = db = None
+    if needs[0]:
+        same = isinstance(transpose, str)
+        m, wt = (kmap, w.flip(0)) if same else (transpose, w)
+        acc = torch.zeros((b, v_in, c_in), dtype=torch.float32, device=feats.device)
+        for k in range(w.shape[0]):
+            acc += gather_voxels(gf, m[:, k]) @ wt[k].T
+        df = acc.to(feats.dtype)
+    if needs[1]:
+        f = feats.float()
+        dw = torch.stack([torch.einsum("bvc,bvo->co", gather_voxels(f, kmap[:, k]), gf)
+                          for k in range(w.shape[0])]).to(weights.dtype)
+    if needs[2] and bias is not None:
+        db = gf.sum((0, 1)).to(bias.dtype)
+    return df, dw, db
+
+
 # output channels a block of the tensor-core kernel can hold, the rows of a
 # block and of a warp's strip, and the card's SM count; all mirror
 # csrc/sparse_conv.cu
@@ -357,6 +424,33 @@ def kernel_plan(dtype: torch.dtype, n_taps: int, c_in: int, c_out: int, v_out: i
     return name, nc, kc, packed, split
 
 
+# the weight gradient's kernel: output channels a block can hold, rows of dW
+# (input channels, or packed (tap, channel) pairs) a block holds, and the
+# most 16-row strips a block lists; mirror csrc/sparse_conv.cu
+WGRAD_WIDTHS = (32, 64, 96, 128)
+WGRAD_ROWS, WGRAD_LIST = 64, 2048
+
+
+def wgrad_plan(n_taps: int, c_in: int, c_out: int, rows: int, packed: bool,
+               want_w: bool = True, want_b: bool = False) -> Tuple[int, int, int]:
+    """(output channels a block holds, blocks along dW's rows, row split) of
+    the weight-gradient kernel. Blocks along dW's rows: a tap's C_in in
+    64-row tiles for each tap, or the packed K * C_in in 64-row tiles (and
+    none where only the bias gradient is asked); the bias takes one more
+    row of blocks. The output rows are dealt out over `split` blocks, aiming
+    at four blocks an SM by capacity, with at least 16 strips a block and at
+    most WGRAD_LIST."""
+    bn = next((w for w in WGRAD_WIDTHS if c_out <= w), WGRAD_WIDTHS[-1])
+    m_units = 0
+    if want_w:
+        m_units = (-(-n_taps * c_in // WGRAD_ROWS) if packed
+                   else n_taps * -(-c_in // WGRAD_ROWS))
+    base = -(-c_out // bn) * (m_units + int(want_b))
+    strips = -(-rows // STRIP_ROWS)
+    split = max(1, min(-(-4 * SM_COUNT // base), strips // 16), -(-strips // WGRAD_LIST))
+    return bn, m_units, split
+
+
 def variant(feats: torch.Tensor, weights: torch.Tensor, kmap: torch.Tensor) -> str:
     """The kernel variant `sparse_conv(feats, weights, kmap, ...)` launches on
     the card: a pure function of shapes and dtype (tensors from the allocator
@@ -379,15 +473,25 @@ def strip_tap_steps(kmap: torch.Tensor, out_valid: Optional[torch.Tensor] = None
     return int(tiles.sum()) * per_tile * k, int(strips.sum())
 
 
+# the marker of a map of one level onto itself (`kmap3`, `kmap5`): its
+# offsets are symmetric, so tap K-1-k is tap k's transpose
+SAME_LEVEL = "same_level"
+
+
 def sparse_conv(
     feats: torch.Tensor,
     weights: torch.Tensor,
     kmap: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     out_valid: Optional[torch.Tensor] = None,
+    transpose=None,
 ) -> torch.Tensor:
     """Sparse conv: kernel K1 on CUDA tensors, the plain version on CPU ones
-    (same checks on both)."""
+    (same checks on both). `transpose`, the map's transpose, selects the
+    gather form of the backward: SAME_LEVEL, or a (B, K, V_in) int32 map with
+    transpose[b, k, u] = v where kmap[b, k, v] = u and -1 elsewhere (each
+    tap then hits an input row once at most). Without it the backward is
+    the plain version's VJP."""
     if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sparse_conv: unsupported device {feats.device}")
     if feats.dtype not in (torch.float32, torch.bfloat16):
@@ -414,30 +518,56 @@ def sparse_conv(
     for t in (weights, kmap, bias, out_valid):
         if t is not None and t.device != feats.device:
             raise ValueError("sparse_conv: all tensors must be on one device")
+    if isinstance(transpose, str):
+        if transpose != SAME_LEVEL or v_out != feats.shape[1]:
+            raise ValueError("sparse_conv: transpose must be SAME_LEVEL (a map of one level "
+                             "onto itself, V_out == V_in) or a (B, K, V_in) int32 map")
+    elif transpose is not None:
+        if (transpose.shape != (b, k, feats.shape[1]) or transpose.dtype != torch.int32
+                or transpose.device != feats.device or not transpose.is_contiguous()):
+            raise ValueError(f"sparse_conv: transpose must be a contiguous int32 (B, K, V_in) map "
+                             f"on the features' device, got {tuple(transpose.shape)}")
     _build.record("sparse_conv", feats, weights, kmap, bias, out_valid)
-    return _SparseConv.apply(feats, weights, bias, kmap, out_valid)
+    return _SparseConv.apply(feats, weights, bias, kmap, out_valid, transpose)
 
 
 class _SparseConv(torch.autograd.Function):
-    """K1 with the plain version's VJP as its backward (the JAX package's
-    `_spconv2_hybrid`): gradients for feats, weights and bias (in the
-    bias's own dtype, though the kernel reads it as fp32); the kernel map
-    and the output mask take none."""
+    """K1 with gradients for feats, weights and bias (in the bias's own
+    dtype, though the kernel reads it as fp32); the kernel map and the
+    output mask take none. A call with its map's transpose takes the gather
+    form of the backward (`_launch_backward` on the card in bf16,
+    `sparse_conv_backward_reference` otherwise), any other the plain
+    version's VJP (the JAX package's `_spconv2_hybrid`). The backward
+    launches through the library, not `sparse_conv`: the recorder and
+    `sparse_conv.launches` see forward calls only; `backward_calls` counts
+    the backwards by form."""
 
     @staticmethod
-    def forward(ctx, feats, weights, bias, kmap, out_valid):
-        ctx.save_for_backward(feats, weights, bias, kmap, out_valid)
+    def forward(ctx, feats, weights, bias, kmap, out_valid, transpose):
+        ctx.same_level = isinstance(transpose, str)
+        ctx.gather_form = transpose is not None
+        kmap_t = None if ctx.same_level else transpose
+        ctx.save_for_backward(feats, weights, bias, kmap, out_valid, kmap_t)
         if feats.device.type == "cpu":
             return sparse_conv_reference(feats, weights, kmap, bias, out_valid)
         return _launch(feats, weights, kmap, bias, out_valid)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weights, bias, kmap, out_valid = ctx.saved_tensors
-        grads = _build.plain_vjp(
-            lambda f, w, b: sparse_conv_reference(f, w, kmap, b, out_valid),
-            (feats, weights, bias), ctx.needs_input_grad[:3], g)
-        return (*grads, None, None)
+        feats, weights, bias, kmap, out_valid, kmap_t = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if not ctx.gather_form:
+            sparse_conv.backward_calls["plain"] += 1
+            grads = _build.plain_vjp(
+                lambda f, w, b: sparse_conv_reference(f, w, kmap, b, out_valid),
+                (feats, weights, bias), needs, g)
+            return (*grads, None, None, None)
+        sparse_conv.backward_calls["kernel"] += 1
+        transpose = SAME_LEVEL if ctx.same_level else kmap_t
+        on_kernels = feats.device.type == "cuda" and feats.dtype == torch.bfloat16
+        backward = _launch_backward if on_kernels else sparse_conv_backward_reference
+        grads = backward(g, feats, weights, kmap, transpose, bias, out_valid, needs)
+        return (*grads, None, None, None)
 
 
 def _launch(feats, weights, kmap, bias, out_valid) -> torch.Tensor:
@@ -467,12 +597,64 @@ def _launch(feats, weights, kmap, bias, out_valid) -> torch.Tensor:
 
 
 sparse_conv.launches = 0
+# backwards by form: "kernel" the gather form (its kernels on the card in
+# bf16, its plain statement otherwise), "plain" the plain VJP
+sparse_conv.backward_calls = {"kernel": 0, "plain": 0}
+
+
+def _launch_backward(g, feats, weights, kmap, transpose, bias, out_valid, needs):
+    """The gather form of the backward on the card (bf16): the feature
+    gradient through `k1_dgrad_*` (K1's body on g, the transposed map and
+    the flipped, transposed weights), the weight and bias gradients through
+    `k1_wgrad_*` (partial products, then a fixed-order sum): deterministic."""
+    b, v_in, c_in = feats.shape
+    k, _, c_out = weights.shape
+    v_out = kmap.shape[2]
+    dev = feats.device
+    g = g.contiguous()
+    lib = _build.load("sparse_conv")
+    stream = _build.stream(dev)
+    df = dw = db = None
+    if needs[0]:
+        g_m = g if out_valid is None else torch.where(
+            out_valid[..., None], g, torch.zeros((), dtype=g.dtype, device=dev))
+        same = isinstance(transpose, str)
+        w_t = (weights.flip(0) if same else weights).transpose(1, 2).contiguous()
+        kmap_t = kmap if same else transpose
+        df = torch.empty((b, v_in, c_in), dtype=feats.dtype, device=dev)
+        aligned = g_m.data_ptr() % 16 == 0 and w_t.data_ptr() % 16 == 0
+        # planned on the tiles of the whole batch, all of which the grid holds
+        _, nc, kc, packed, split = kernel_plan(feats.dtype, k, c_out, c_in, b * v_in, aligned)
+        part = None
+        if split > 1:
+            part = torch.empty((split, b, v_in, c_in), dtype=torch.float32, device=dev)
+        _build.check(lib.xm_k1_dgrad_bf16(
+            _build.ptr(g_m), _build.ptr(w_t), _build.ptr(kmap_t), _build.ptr(df),
+            _build.ptr(part), b, v_out, c_out, c_in, k, v_in, nc, kc, int(packed), split,
+            stream), "sparse_conv backward (features)")
+    want_b = bool(needs[2]) and bias is not None
+    if needs[1] or want_b:
+        packed = not (c_in % 8 == 0 and feats.data_ptr() % 16 == 0)
+        g_vec = c_out % 8 == 0 and g.data_ptr() % 16 == 0
+        bn, m_units, split = wgrad_plan(k, c_in, c_out, b * v_out, packed, bool(needs[1]), want_b)
+        part = torch.empty((split, k * c_in + 1, c_out), dtype=torch.float32, device=dev)
+        dw = torch.empty_like(weights) if needs[1] else None
+        db = torch.empty((c_out,), dtype=torch.float32, device=dev) if want_b else None
+        valid_u8 = out_valid.view(torch.uint8) if out_valid is not None else None
+        _build.check(lib.xm_k1_wgrad_bf16(
+            _build.ptr(feats), _build.ptr(g), _build.ptr(kmap), _build.ptr(valid_u8),
+            _build.ptr(part), _build.ptr(dw), _build.ptr(db), b, v_in, c_in, c_out, k, v_out,
+            bn, int(packed), int(g_vec), m_units, split, stream), "sparse_conv backward (weights)")
+        if want_b:
+            db = db.to(bias.dtype)
+    return df, dw, db
 
 
 def _bind(lib):
     import ctypes
 
-    for name, ptrs, ints in (("xm_sparse_conv_f32", 6, 6), ("xm_sparse_conv_bf16", 7, 10)):
+    for name, ptrs, ints in (("xm_sparse_conv_f32", 6, 6), ("xm_sparse_conv_bf16", 7, 10),
+                             ("xm_k1_dgrad_bf16", 5, 10), ("xm_k1_wgrad_bf16", 7, 11)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

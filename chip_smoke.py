@@ -232,6 +232,14 @@ def expected_launches(mc) -> dict:
                 blocks += 1
             idx += 1
     k2 = 2 * blocks * len(mc.ldm.steps) + 2
+    # the models' GroupNorm (`group_norm`): per SD UNet pass two a resblock
+    # (down, middle, and the up blocks before the last tap) and one a spatial
+    # transformer; the VAE's resblocks two each (K4's with fused_gn), its two
+    # middle attention blocks and the encoder's norm_out; the backbone's
+    # bottleneck projections, three a tap and a fourth on the shortcut of a
+    # tap not 512 wide (`FeatureExtractorBackbone`'s projection width); the
+    # pixel decoder's three input levels, lateral and output convs
+    unet_gn = 2 * (n_lv * u.num_res_blocks + 2 + last) + blocks
     # K4 (with fused_gn): two GN -> SiLU -> conv stages per VAE resblock;
     # the encoder runs all of its blocks and two mid blocks, the decoder its
     # two mid blocks and the up blocks before its last tap
@@ -239,9 +247,11 @@ def expected_launches(mc) -> dict:
     enc = len(v.ch_mult) * v.num_res_blocks + 2
     dec = 2 + min(max(mc.ldm.decoder_block_indices), len(v.ch_mult) * (v.num_res_blocks + 1))
     k4 = 2 * (enc + dec) if mc.fused_gn else 0
+    gn = (unet_gn * len(mc.ldm.steps) + 2 * (enc + dec) + 3 - k4
+          + sum(3 + (ch != 512) for ch in mc.ldm.feature_channels()) + 5)
     # K3: one sampling call per deformable encoder layer
     return {"sparse_conv": k1, "flash_attention": k2, "deform_attn": mc.pixel_enc_layers,
-            "gn_silu_conv": k4}
+            "gn_silu_conv": k4, "group_norm": gn}
 
 
 def expected_train_launches(mc) -> dict:
@@ -251,8 +261,11 @@ def expected_train_launches(mc) -> dict:
     checkpointed there, since none of their inputs needs a gradient). K1's
     backward launches its own kernels through the library, not through the
     wrapper, so it adds no K1 launch: each K1 call takes one gather-form
-    backward (`sparse_conv.backward_calls`)."""
+    backward (`sparse_conv.backward_calls`). The models' GroupNorm is not
+    counted: its calls that autograd records take the plain formula, the
+    frozen towers' take the kernel."""
     n = expected_launches(mc)
+    del n["group_norm"]
     if mc.remat_backbone:
         n["flash_attention"] += n["flash_attention"] - 2  # all but the VAE's two
     return n
@@ -300,6 +313,19 @@ def kernel_table():
             "shape": lambda call: (*call[0].shape, call[3].shape[3]),
             "source": "xmask3d_tpu_torch/csrc/gn_conv.cu",
             "replaces": "xmask3d_tpu/ops/gn_conv.py:141",
+        },
+        "group_norm": {
+            "fn": gn_conv.group_norm, "plain": gn_conv.group_norm_reference,
+            # 16-byte loads of x, as the statistics' plan takes them
+            "variant": lambda call: "vec" if gn_conv.stats_plan(
+                1, call[0].shape[-1], call[0].dtype, aligned=call[0].data_ptr() % 16 == 0)[2] > 1
+            else "scalar",
+            # batch, values of a channel, C, SiLU
+            "shape": lambda call: (call[0].shape[0],
+                                   call[0][0].numel() // call[0].shape[-1],
+                                   call[0].shape[-1], int(call[5])),
+            "source": "xmask3d_tpu_torch/csrc/gn_conv.cu",
+            "replaces": "xmask3d_tpu/models/layers.py:17",
         },
     }
 
@@ -441,6 +467,13 @@ def work(name, call, out):
     if name == "group_moments":
         # one read of x; a subtraction and two multiply-adds a value
         return nbytes(call[0], out), 5 * call[0].numel()
+    if name == "group_norm":
+        # x read once and the output written once (the function's floor; the
+        # kernels read x twice), the parameters; the statistics' five
+        # operations a value, then a subtraction and a multiply-add, and
+        # SiLU's exponential, add and division
+        x, weight, bias, _, _, silu = call
+        return nbytes(x, weight, bias, out), (8 + 3 * bool(silu)) * x.numel()
     value, _, loc, aw = call
     b, lq, heads, n_lv, npts, _ = loc.shape
     # four taps, one multiply-add per channel each
@@ -451,8 +484,8 @@ def bound(name, calls, outs):
     """(least ms for the calls, "bytes" or "operations"): per call the larger
     of its bytes over the memory rate and its operations over the peak rate
     of their type (bf16 tensor cores, or fp32 for the deformable sampling,
-    whose bilinear weights are fp32)."""
-    peak = PEAK_OPS["fp32"] if name == "deform_attn" else PEAK_OPS["bf16"]
+    whose bilinear weights are fp32, and GroupNorm, which computes in fp32)."""
+    peak = PEAK_OPS["fp32"] if name in ("deform_attn", "group_norm") else PEAK_OPS["bf16"]
     times = [(b / HBM_BYTES_PER_S, ops / peak) for b, ops in
              (work(name, c, o) for c, o in zip(calls, outs))]
     total = sum(max(t) for t in times) * 1e3
@@ -798,7 +831,7 @@ def profile_view(fn, *args) -> dict:
         end = max(end, stop)
     ours = {k: sum(ms for n, ms in by_name.items() if k in n)
             for k in ("sparse_conv_", "flash_", "deform_attn_", "gn_conv_wgmma_", "gn_stats_",
-                      "gn_affine_")}
+                      "gn_affine_", "gn_moments_", "gn_apply_")}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "phase": "profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
@@ -817,6 +850,7 @@ KERNEL_NAMES = {
     "deform_attn": ("deform_attn_vec_kernel", "deform_attn_kernel"),
     "gn_silu_conv": ("gn_conv_wgmma_kernel", "gn_conv_f32_kernel"),
     "gn_statistics": ("gn_affine_kernel",),
+    "group_norm": ("gn_apply_kernel",),
 }
 
 
@@ -888,14 +922,49 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
+@contextlib.contextmanager
+def exact_group_norm():
+    """The models' GroupNorm with exact statistics while it lasts: float64
+    `var_mean` per (batch, group) and the centred form in float64, cast back
+    to x's type. On the card every GroupNorm call that autograd does not
+    record takes `group_norm`'s kernel, whose statistics are Welford's with
+    fp64 merges; the plain formula's one-pass fp32 variance E[x^2] - E[x]^2
+    cancels in the tiny model's groups of two values (the SD UNet's 1x1 maps
+    of 64 channels), by up to 7% of rsqrt(var + eps), and its stride-32
+    features amplify the rounding: on the CPU alone the one-pass formula's
+    s5 moves by 0.0193 between 4 and 8 threads, past the stage tolerance of
+    0.0135, and these statistics' by 2.1e-5."""
+    import torch
+    import torch.nn.functional as F
+
+    from xmask3d_tpu_torch.models import layers
+
+    def exact(x, weight, bias, groups, eps=1e-6, silu=False):
+        cg = x.shape[-1] // groups
+        xd = x.double().reshape(x.shape[0], -1, groups, cg)
+        var, mean = torch.var_mean(xd, dim=(1, 3), correction=0, keepdim=True)
+        y = ((xd - mean) * (torch.rsqrt(var + eps) * weight.double().reshape(groups, cg))
+             + bias.double().reshape(groups, cg)).reshape(x.shape).to(x.dtype)
+        return F.silu(y) if silu else y
+
+    plain, layers.group_norm = layers.group_norm, exact
+    try:
+        yield
+    finally:
+        layers.group_norm = plain
+
+
 def reference_check(cfg_path, fused_gn: bool = False) -> dict:
-    """Tiny model, fp32: the card (kernels) against the CPU (plain versions)
-    on the same weights and batch, stage by stage with the CPU's stage
-    inputs, within 2e-3 of each output's largest value (the eval golden's
-    tolerance);
-    then the whole eval forward, whose discrete outputs must agree on 99%.
-    With `fused_gn` the VAE resblocks run K4 on the card, which must launch
-    for every stage of both runs."""
+    """Tiny model, fp32: the card (kernels) against the CPU (plain versions;
+    GroupNorm with exact statistics, `exact_group_norm`, as the card's
+    kernel computes them) on the same weights and batch, stage by stage with
+    the CPU's stage inputs, within 2e-3 of each output's largest value (the
+    eval golden's tolerance); then the whole eval forward, whose discrete
+    outputs must agree on 99%. The card against the CPU's one-pass GroupNorm
+    formula is logged beside (`<stage>_vs_one_pass`). With `fused_gn` the
+    VAE resblocks run K4 on the card, which must launch for every stage of
+    both runs; every other GroupNorm call of both runs must take
+    `group_norm`'s kernel."""
     import torch
 
     from xmask3d_tpu_torch.config import load_config
@@ -916,7 +985,8 @@ def reference_check(cfg_path, fused_gn: bool = False) -> dict:
     s_cpu = build_statics(cpu, cfg, device="cpu")
     s_gpu = build_statics(gpu, cfg, device="cuda")
     with torch.no_grad():
-        ref = trunk_stages(cpu, b_cpu, s_cpu)
+        with exact_group_norm():
+            ref = trunk_stages(cpu, b_cpu, s_cpu)
         got = trunk_stages(gpu, b_gpu, s_gpu, given=_to(ref, "cuda"))
     report, bad = {"phase": "reference_tiny_fp32" + ("_fused_gn" if fused_gn else "")}, []
     for (key, a), (_, b) in zip(_leaves(ref), _leaves(got)):
@@ -925,7 +995,8 @@ def reference_check(cfg_path, fused_gn: bool = False) -> dict:
         report[key] = err
         if not err <= tol:
             bad.append(f"{key}: {err} > {tol}")
-    out_cpu = cpu.eval_forward(b_cpu, s_cpu)
+    with exact_group_norm():
+        out_cpu = cpu.eval_forward(b_cpu, s_cpu)
     out_gpu = gpu.eval_forward(b_gpu, s_gpu)
     for key in ("final_mask_3d", "pred_labels", "binary_pred"):
         frac = float((out_cpu[key] != out_gpu[key].cpu()).float().mean())
@@ -936,6 +1007,14 @@ def reference_check(cfg_path, fused_gn: bool = False) -> dict:
     k4 = 2 * expected_launches(gpu.cfg)["gn_silu_conv"]
     if report["launches"]["gn_silu_conv"] != k4:
         bad.append(f"K4 launched {report['launches']['gn_silu_conv']} times, expected {k4}")
+    gn = 2 * expected_launches(gpu.cfg)["group_norm"]
+    if report["launches"]["group_norm"] != gn:
+        bad.append(f"group_norm launched {report['launches']['group_norm']} times, expected {gn}")
+    with torch.no_grad():
+        one_pass = trunk_stages(cpu, b_cpu, s_cpu)
+        got = trunk_stages(gpu, b_gpu, s_gpu, given=_to(one_pass, "cuda"))
+    for (key, a), (_, b) in zip(_leaves(one_pass), _leaves(got)):
+        report[f"{key}_vs_one_pass"] = float((a.float() - b.float().cpu()).abs().max())
     if bad:
         log(report)
         raise AssertionError("tiny reference: " + "; ".join(bad))
@@ -2710,11 +2789,78 @@ def ddp_compare(one, nudged, ranks) -> dict:
 
 def validation_hists(model, cfg, batch, statics) -> dict:
     """The validate step's IoU histograms of one batch (deterministic
-    algorithms), on the host."""
-    from xmask3d_tpu_torch.engine.validate import make_validate_step
+    algorithms), on the host ("hists"), and what `tie_flips` reads of the
+    same forward: each stream's routed class scores (B, P, L) before its
+    argmax ("scores"), the binary routing, each point's last covering mask
+    and the valid points. The scores' argmax must give the histograms."""
+    import torch
 
+    from xmask3d_tpu_torch.engine.infer import routed_2d_scores, routed_scores
+    from xmask3d_tpu_torch.engine.validate import make_validate_step
+    from xmask3d_tpu_torch.utils.metrics import intersection_and_union
+
+    mc = model.cfg
     hists = _deterministic(make_validate_step(model, cfg), batch, statics)
-    return {k: [t.cpu() for t in v] for k, v in hists.items()}
+
+    @torch.no_grad()
+    def forward():
+        was_training = model.training
+        model.eval()
+        try:
+            return model.eval_forward(batch, statics)
+        finally:
+            model.train(was_training)
+
+    outputs = _deterministic(forward)
+    r = routed_scores(outputs, mc.base_category, mc.novel_category, cfg.base_ratio,
+                      cfg.novel_ratio)
+    b, p = r["pred"].shape[:2]
+    ident = torch.arange(p, dtype=torch.int32, device=r["pred"].device).expand(b, p)
+    scores = {"pred": r["pred"], "pred_3d": r["pred_3d"],
+              "pred_2d": routed_2d_scores(r["feat_2d"], ident, r["binary_pred"], r["text"],
+                                          r["logit_scale"], mc.base_category, mc.novel_category)}
+    for name, s in scores.items():
+        again = intersection_and_union(
+            s.argmax(dim=-1).int(), batch["labels_3d"], mc.num_test_classes,
+            ignore_index=tuple(mc.ignore_category), valid=batch["point_valid"])
+        if not all(torch.equal(a, h) for a, h in zip(again, hists[name])):
+            raise AssertionError(f"validation {name}: the scores' argmax does not give the "
+                                 "validate step's histograms")
+    mask = outputs["final_mask_3d"] & outputs["final_mask_valid"][:, :, None]
+    q_ids = torch.arange(mask.shape[1], device=mask.device)[None, :, None]
+    return {"hists": {k: [t.cpu() for t in v] for k, v in hists.items()},
+            "scores": {k: v.cpu() for k, v in scores.items()},
+            "binary": r["binary_pred"].cpu(),
+            "last_q": torch.where(mask, q_ids, torch.full_like(q_ids, -1)).amax(dim=1).cpu(),
+            "valid": batch["point_valid"].bool().cpu()}
+
+
+def tie_flips(one, got) -> tuple:
+    """The labels of `got` that differ from `one`'s on valid points (both
+    `validation_hists` of one batch), split into ties and the rest. A label
+    is a tie where both runs route the point alike (the same binary
+    prediction and last covering mask) and the top two of its routed scores
+    in `one` lie closer than `got`'s scores move from `one`'s: the stream's
+    largest change over the points routed alike, on the classes not routed
+    away. Returns (ties, others, that change by stream)."""
+    import torch
+
+    valid = one["valid"]
+    alike = (one["binary"] == got["binary"]) & (one["last_q"] == got["last_q"]) & valid
+    ties, others, moved = [], [], {}
+    for stream, s1 in one["scores"].items():
+        s2 = got["scores"][stream]
+        live = alike[..., None] & (s1 > -1e9) & (s2 > -1e9)
+        moved[stream] = float((s2 - s1).abs()[live].max()) if live.any() else 0.0
+        l1, l2 = s1.argmax(dim=-1), s2.argmax(dim=-1)
+        top2 = s1.topk(2, dim=-1).values
+        for b, p in ((l1 != l2) & valid).nonzero().tolist():
+            margin = float(top2[b, p, 0] - top2[b, p, 1])
+            entry = {"stream": stream, "view": b, "point": p,
+                     "labels": [int(l1[b, p]), int(l2[b, p])], "top_two_margin": margin,
+                     "routed_alike": bool(alike[b, p]), "scores_moved": moved[stream]}
+            (ties if entry["routed_alike"] and margin < moved[stream] else others).append(entry)
+    return ties, others, moved
 
 
 def ddp_phase(caps) -> dict:
@@ -3075,7 +3221,9 @@ def tp_phase(ref, table, rows) -> dict:
     collectives (count, bytes, ms), parameter, master and peak bytes a rank
     against the whole model's; the kernels' launches in the timed step as
     one process's (`expected_train_launches`), on their fast variants. (c)
-    One validation batch's histograms equal to one process's. (d) Every K2 call of the step
+    One validation batch's labels as one process's, but for ties
+    (`tie_flips`, each logged), and the two ranks' histograms equal. (d)
+    Every K2 call of the step
     at the rank's head count against its plain version; its per-shape times
     join K2's row of the `kernels` line (`tp_by_shape`). Gloo moves every
     collective through the host, so the step ms measure that, not NVLink.
@@ -3110,14 +3258,21 @@ def tp_phase(ref, table, rows) -> dict:
         except AssertionError as e:
             bad.append(str(e))
     flips, points = 0, int(ref["val_batch"]["point_valid"].sum())
-    for r in ranks:
-        for k, want in ref["val"].items():
-            flips = max(flips, sum(int((g - w).abs().sum()) for g, w in zip(r["val"][k], want)))
-    if flips:
-        bad.append(f"validation histograms differ from one process's by {flips} counts over "
-                   f"{points} points")
-    if not all(torch.equal(ranks[0]["val"][k][i], ranks[1]["val"][k][i])
-               for k in ranks[0]["val"] for i in range(3)):
+    ties, moved = [], []
+    for i, r in enumerate(ranks):
+        for k, want in ref["val"]["hists"].items():
+            flips = max(flips, sum(int((g - w).abs().sum())
+                                   for g, w in zip(r["val"]["hists"][k], want)))
+        tied, others, m = tie_flips(ref["val"], r["val"])
+        ties += [dict(e, rank=i) for e in tied]
+        moved.append(m)
+        if others:
+            bad.append(f"rank {i}: {len(others)} validation labels differ from one process's "
+                       f"and are no tie: {others[:3]}")
+    for e in ties:
+        log(dict(e, phase="tp_validation_tie"))
+    if not all(torch.equal(ranks[0]["val"]["hists"][k][i], ranks[1]["val"]["hists"][k][i])
+               for k in ranks[0]["val"]["hists"] for i in range(3)):
         bad.append("the model group's validation histograms differ")
     k2 = [r["k2"] for r in ranks]
     heads = sorted({s["shape"][0] for s in k2[0]["by_shape"]})
@@ -3138,7 +3293,8 @@ def tp_phase(ref, table, rows) -> dict:
          "bf16_one_process_peak_bytes": ref["bf16_peak_bytes"],
          "sharded_tensors": b0["sharded_tensors"], "launches": b0["launches"],
          "fp32_step_ms": [r["fp32"]["step_ms"] for r in ranks], **cmp,
-         "val_points": points, "val_counts_apart": flips,
+         "val_points": points, "val_counts_apart": flips, "val_tied_labels": len(ties),
+         "val_scores_moved": moved,
          "k2_heads": heads, "k2_calls": k2[0]["calls"],
          "k2_max_abs_err": [k["max_abs_err"] for k in k2],
          "k2_max_abs_err_fp32": [k["max_abs_err_fp32"] for k in k2],

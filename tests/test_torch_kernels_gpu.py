@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from xmask3d_tpu_torch.models.layers import gn_groups
+from xmask3d_tpu_torch.models.layers import GroupNorm, gn_groups
 from xmask3d_tpu_torch.ops import deform_attn as tda
 from xmask3d_tpu_torch.ops import flash_attention as tfa
 from xmask3d_tpu_torch.ops import gn_conv as tgc
@@ -490,6 +490,153 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     wk, bf = tgc.kernel_params(w, v[:16], torch.float32)
     with pytest.raises(ValueError, match="kernel_params"):
         tgc.gn_silu_conv(x, v, v, w, v[:16], params=(wk.bfloat16(), bf))
+
+
+# --------------------------------------------------------------------------
+# the models' plain GroupNorm calls: K4's statistics and `gn_apply_kernel`
+# --------------------------------------------------------------------------
+
+# fp32 is held to 1e-4: the plain formula's one-pass fp32 variance and the
+# kernel's fp64-merged moments part by more than the summation order
+GN_DTYPES = ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7))
+
+
+def _gn_norm_args(rng, shape, cuda, loc=1.0, spread=3.0, p_dtype=torch.float32):
+    c = shape[-1]
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * spread + loc).to(cuda)
+    w = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).to(cuda, p_dtype)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.1).to(cuda, p_dtype)
+    return x, w, b
+
+
+def _group_norm_close(x, w, b, groups, silu, tol):
+    n = tgc.group_norm.launches
+    got = tgc.group_norm(x, w, b, groups, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert tgc.group_norm.launches == n + 1
+    assert got.dtype == x.dtype and got.shape == x.shape and got.is_contiguous()
+    ref = tgc.group_norm_reference(x, w, b, groups, 1e-6, silu).float()
+    err = float((got.float() - ref).abs().max())
+    assert err <= tol * max(1.0, float(ref.abs().max())), err
+
+
+# the serving view's GroupNorm shapes (B, H, W, C): the VAE encoder's levels,
+# the decoder's, the SD UNet's, the backbone's projections and the pixel
+# decoder's 256-channel maps
+GN_PATH_SHAPES = [(1, 512, 512, 128), (1, 256, 256, 256), (1, 128, 128, 512), (1, 64, 64, 512),
+                  (1, 64, 64, 320), (1, 32, 32, 640), (1, 16, 16, 1280), (1, 8, 8, 2560),
+                  (1, 8, 8, 1280), (1, 128, 128, 256), (1, 64, 64, 256), (1, 32, 32, 256),
+                  (1, 16, 16, 256), (1, 128, 128, 128), (1, 16, 16, 512)]
+
+
+@pytest.mark.parametrize("shape", GN_PATH_SHAPES)
+def test_group_norm_at_the_serving_shapes(cuda, shape):
+    """Kernel against the plain formula, bf16 and fp32, SiLU on and off."""
+    rng = np.random.RandomState(sum(shape))
+    x, w, b = _gn_norm_args(rng, shape, cuda)
+    for dt, tol in GN_DTYPES:
+        for silu in (False, True):
+            _group_norm_close(x.to(dt), w, b, gn_groups(shape[-1]), silu, tol)
+
+
+@pytest.mark.parametrize("shape,loc,spread,p_dtype", [
+    ((2, 13, 21, 36), 1.0, 3.0, torch.float32),       # C off 8: scalar loads in bf16
+    ((2, 9, 7, 20), -2.0, 4.0, torch.bfloat16),       # C off 8, bf16 parameters
+    ((2, 1, 1, 32), 30.0, 0.05, torch.float32),       # a group of one value near 30
+    ((3, 1, 2, 32), 30.0, 0.0, torch.float32),        # groups of equal values
+    ((2, 5, 3, 7), 0.5, 2.0, torch.float32),          # seven groups of one channel
+    ((2, 300, 320), 0.0, 1.0, torch.bfloat16),        # (B, N, C): any rank
+    ((1, 6, 10, 4096), 0.0, 1.0, torch.float32),      # more 16-byte slots than threads
+])
+def test_group_norm_widths_and_values(cuda, shape, loc, spread, p_dtype):
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    x, w, b = _gn_norm_args(rng, shape, cuda, loc, spread, p_dtype)
+    for dt, tol in GN_DTYPES:
+        for silu in (False, True):
+            _group_norm_close(x.to(dt), w, b, gn_groups(shape[-1]), silu, tol)
+
+
+def test_group_norm_at_a_large_mean_against_float64(cuda):
+    """Groups of mean 30 and spread 0.5, where the plain formula's one-pass
+    variance loses digits: the kernel against float64 of the same values."""
+    rng = np.random.RandomState(3)
+    x, w, b = _gn_norm_args(rng, (2, 40, 48, 128), cuda, loc=30.0, spread=0.5)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        xd = x.to(dt)
+        got = tgc.group_norm(xd, w, b, 32).double()
+        xg = xd.double().reshape(2, -1, 32, 4)
+        var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
+        ref = ((xg - mean) * torch.rsqrt(var + 1e-6) * w.double().reshape(32, 4)
+               + b.double().reshape(32, 4)).reshape(x.shape)
+        assert float((got - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+
+
+def test_group_norm_off_16_bytes_and_non_contiguous(cuda):
+    """x through a view off 16 bytes (scalar loads) against the plain
+    formula; a non-contiguous x, and a CUDA x of another type, refused."""
+    rng = np.random.RandomState(5)
+    x, w, b = _gn_norm_args(rng, (2, 24, 70, 128), cuda)
+    for dt, tol in GN_DTYPES:
+        buf = torch.empty(x.numel() + 1, dtype=dt, device=cuda)
+        buf[1:] = x.to(dt).reshape(-1)
+        off = buf[1:].view(x.shape)
+        assert off.data_ptr() % 16 and off.is_contiguous()
+        _group_norm_close(off, w, b, 32, True, tol)
+        with pytest.raises(ValueError, match="contiguous"):
+            tgc.group_norm(x.to(dt).transpose(1, 2), w, b, 32)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="dtype"):
+            tgc.group_norm(x.to(dt), w, b, 32)
+
+
+def test_group_norm_module_routes_only_unrecorded_calls_to_the_kernel(cuda):
+    """The module takes the kernel under `no_grad` and for frozen inputs,
+    and the plain formula, with its gradients, where autograd records."""
+    rng = np.random.RandomState(6)
+    x, _, _ = _gn_norm_args(rng, (2, 16, 16, 64), cuda)
+    gn = GroupNorm(64).to(cuda)
+    n = tgc.group_norm.launches
+    with torch.no_grad():
+        gn(x, silu=True)
+    assert tgc.group_norm.launches == n + 1
+    xg = x.clone().requires_grad_()
+    y = gn(xg, silu=True)
+    assert tgc.group_norm.launches == n + 1 and y.grad_fn is not None
+    y.sum().backward()
+    assert xg.grad is not None and gn.weight.grad is not None
+    gn.requires_grad_(False)
+    gn(x)
+    assert tgc.group_norm.launches == n + 2
+
+
+def test_group_norm_captured_and_replayed_equals_eager(cuda):
+    """One bf16 call with SiLU captured into a CUDA graph and replayed equals
+    the eager call bit for bit, before and after new values are copied into
+    the input buffer; the counter counts the capture, not the replays."""
+    rng = np.random.RandomState(7)
+    x, w, b = _gn_norm_args(rng, (1, 64, 64, 320), cuda)
+    x = x.bfloat16()
+    eager = tgc.group_norm(x, w, b, 32, silu=True)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tgc.group_norm(static, w, b, 32, silu=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = tgc.group_norm.launches
+    with torch.cuda.graph(graph):
+        out = tgc.group_norm(static, w, b, 32, silu=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    new = (torch.randn_like(x.float()) * 0.5 - 2.0).bfloat16()
+    static.copy_(new)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tgc.group_norm(new, w, b, 32, silu=True))
+    assert tgc.group_norm.launches == n + 2  # the capture and the last eager call
 
 
 # --------------------------------------------------------------------------

@@ -80,6 +80,13 @@
 // fp32 inputs (the checks and the fp32 tiny model) take the CUDA-core FMA
 // kernel `gn_conv_f32_kernel` (8 x 16 pixels x 64 channels a block) with the
 // weights as (tap, C_out, C).
+//
+// The models' plain GroupNorm calls (`group_norm` in ops/gn_conv.py: every
+// call autograd does not record, SiLU fused where the model applies it next)
+// reuse the statistics: `xm_gn_moments`, then `gn_apply_kernel`, which reads
+// x a second time in its own type and writes (x - mean) * (scale / sqrt(M2 /
+// n + eps)) + bias, SiLU'd or not, once in x's type. Three launches a call,
+// about 6 bytes a bf16 value; bound by bytes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -137,6 +144,12 @@ __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+// the sum over each aligned run of `width` lanes (a power of two up to 32),
+// the same tree on every run; all 32 lanes of the warp take part
+__device__ __forceinline__ double lanes_sum(double v, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 __device__ double block_sum(double v, double* red) {  // red: ST / 32 doubles
   v = warp_sum(v);
   __syncthreads();  // red is free again
@@ -147,16 +160,32 @@ __device__ double block_sum(double v, double* red) {  // red: ST / 32 doubles
   return t;
 }
 
+// One pixel's VEC values into a thread's running moments of its channels:
+// Welford's update, n counting the pixels (1 / n correctly rounded)
+template <int VEC>
+__device__ __forceinline__ void welford(const float (&v)[VEC], float& n, float (&mean)[VEC],
+                                        float (&m2)[VEC]) {
+  n += 1.f;
+  const float inv = __frcp_rn(n);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float delta = v[i] - mean[i];
+    mean[i] = fmaf(delta, inv, mean[i]);
+    m2[i] = fmaf(delta, v[i] - mean[i], m2[i]);
+  }
+}
+
 // Block (k, b) takes pixels [k * ppb, (k + 1) * ppb) of batch b. A thread
 // owns VEC channels (one 16-byte slot of a pixel's row) of every rows-th
 // pixel of the range, where rows = max(1, ST / slots) and slots = C / VEC;
 // where C has more slots than the block has threads, a thread takes slots
 // j, j + ST, ... one after another. It keeps Welford's running mean and M2
-// per channel in fp32 in shared memory (dynamic: mean and M2 of rows x C
-// values, then rows counts). Warp w then merges the threads' moments of
-// groups w, w + 8, ... in fp64 by Chan's formula in closed form (the
-// count-weighted mean of the parts, then M2 = sum of the parts' M2 + n (mean
-// - part mean)^2): part[b, k, g] = (mean, M2).
+// per channel in fp32 (four pixels' loads in flight ahead of their updates),
+// then puts them in shared memory (dynamic: mean and M2 of rows x C values,
+// then rows counts). The block then merges the threads' moments of each
+// group in fp64, ST / G threads a group at once, by Chan's formula in closed
+// form (the count-weighted mean of the parts, then M2 = sum of the parts' M2
+// + n (mean - part mean)^2): part[b, k, g] = (mean, M2).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(ST) gn_stats_kernel(const T* __restrict__ x,
                                                      double* __restrict__ part, int hw, int C,
@@ -168,7 +197,6 @@ __global__ void __launch_bounds__(ST) gn_stats_kernel(const T* __restrict__ x,
   float* m2_s = sm + (size_t)rows * C;
   float* cnt = sm + 2 * (size_t)rows * C;
   const int tid = threadIdx.x, r = tid / slots;
-  const int lane = tid & 31, warp = tid >> 5;
   const int cg = C / G;
   const T* x_b = x + (size_t)b * hw * C;
   const int p0 = k * ppb, p1 = min(hw, p0 + ppb);
@@ -178,18 +206,19 @@ __global__ void __launch_bounds__(ST) gn_stats_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < VEC; ++i) mean[i] = m2[i] = 0.f;
       float n = 0.f;
-#pragma unroll 4
-      for (int p = p0 + r; p < p1; p += rows) {
-        float v[VEC];
-        load_vals<VEC>(x_b + (size_t)p * C + j * VEC, v);
-        n += 1.f;
-        const float inv = 1.f / n;
+      const T* x_j = x_b + (size_t)j * VEC;
+      int p = p0 + r;
+      for (; p + 3 * rows < p1; p += 4 * rows) {  // four loads in flight, then their updates
+        float v[4][VEC];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float delta = v[i] - mean[i];
-          mean[i] = fmaf(delta, inv, mean[i]);
-          m2[i] = fmaf(delta, v[i] - mean[i], m2[i]);
-        }
+        for (int u = 0; u < 4; ++u) load_vals<VEC>(x_j + (size_t)(p + u * rows) * C, v[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) welford<VEC>(v[u], n, mean, m2);
+      }
+      for (; p < p1; p += rows) {
+        float v[VEC];
+        load_vals<VEC>(x_j + (size_t)p * C, v);
+        welford<VEC>(v, n, mean, m2);
       }
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
@@ -200,23 +229,33 @@ __global__ void __launch_bounds__(ST) gn_stats_kernel(const T* __restrict__ x,
     }
   }
   __syncthreads();
+  // tpg threads a group (a power of two up to a warp: all 256 threads at
+  // once where G allows), each group's parts split among them and summed by
+  // a shuffle tree within their aligned lanes; every thread runs every pass
   const int parts = rows * cg;  // (row, channel) parts of a group
   const double n_g = (double)(p1 - p0) * cg;
-  for (int g = warp; g < G; g += ST / 32) {
+  const int tpg = G >= ST ? 1 : min(32, 1 << (31 - __clz(ST / G)));
+  const int sub = tid % tpg;
+  for (int g0 = 0; g0 < G; g0 += ST / tpg) {
+    const int g = g0 + tid / tpg;
     double s1 = 0.0;
-    for (int q = lane; q < parts; q += 32) {
-      const int rr = q / cg, c = g * cg + q % cg;
-      s1 += (double)cnt[rr] * mean_s[rr * C + c];
+    if (g < G) {
+      for (int q = sub; q < parts; q += tpg) {
+        const int rr = q / cg, c = g * cg + q % cg;
+        s1 += (double)cnt[rr] * mean_s[rr * C + c];
+      }
     }
-    const double mean = warp_sum(s1) / n_g;
+    const double mean = lanes_sum(s1, tpg) / n_g;
     double s2 = 0.0;
-    for (int q = lane; q < parts; q += 32) {
-      const int rr = q / cg, c = g * cg + q % cg;
-      const double d = mean_s[rr * C + c] - mean;
-      s2 += m2_s[rr * C + c] + (double)cnt[rr] * d * d;
+    if (g < G) {
+      for (int q = sub; q < parts; q += tpg) {
+        const int rr = q / cg, c = g * cg + q % cg;
+        const double d = mean_s[rr * C + c] - mean;
+        s2 += m2_s[rr * C + c] + (double)cnt[rr] * d * d;
+      }
     }
-    s2 = warp_sum(s2);
-    if (lane == 0) {
+    s2 = lanes_sum(s2, tpg);
+    if (g < G && sub == 0) {
       double* dst = part + (((size_t)b * P + k) * G + g) * 2;
       dst[0] = mean;
       dst[1] = s2;
@@ -320,6 +359,137 @@ int launch_moments(const void* x, void* part, void* mom, int B, int hw, int C, i
 }
 
 // ---------------------------------------------------------------------------
+// GroupNorm applied (the model's plain GroupNorm calls on the card)
+// ---------------------------------------------------------------------------
+
+// VEC floats written as VEC consecutive values of y's type, rounded to
+// nearest even: one 16-byte store where VEC > 1
+template <int VEC>
+__device__ __forceinline__ void store_vals(bf16* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    uint4 raw;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = __float2bfloat16_rn(v[j]);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vals(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = v[j];
+  }
+}
+
+// SiLU with the fast exponential and division (a few ulps of fp32, far below
+// a bf16 ulp), as the bf16 conv's producers and the apply pass take it: a
+// pass bound by bytes stays so only while its arithmetic is small against
+// them. Where exp(-z) overflows, z / inf = -0.
+__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.f + __expf(-z)); }
+
+// y = (x - mean_g) * (scale_c / sqrt(M2_g / n + eps)) + bias_c in fp32, SiLU
+// after it where SILU, written once in x's type. The centred form: the fold
+// x * a + (bias - mean * a) cancels where |mean| / sqrt(var + eps) is large
+// (a group of equal values). mom (B, G, 3) is `gn_moments_kernel`'s (count,
+// mean, M2); the block first puts each group's mean and 1 / sqrt(M2 / n +
+// eps) (fp64, rounded once, as `gn_affine_kernel` takes it) in shared memory,
+// one group a thread. Block (k, b) and its threads cover pixels as
+// `gn_stats_kernel` does (thread: VEC channels of every rows-th pixel of the
+// block's range, slots past 256 in turn), so a thread's channel constants
+// stay in registers; four loads of 16 bytes are in flight before the stores.
+template <typename T, typename PT, int VEC, bool SILU>
+__global__ void __launch_bounds__(ST) gn_apply_kernel(const T* __restrict__ x,
+                                                     const double* __restrict__ mom,
+                                                     const PT* __restrict__ scale,
+                                                     const PT* __restrict__ bias,
+                                                     T* __restrict__ y, int hw, int C, int G,
+                                                     int ppb, float eps) {
+  constexpr int U = 4;
+  extern __shared__ float group_sm[];  // G means, then G inverse deviations
+  const int b = blockIdx.y, k = blockIdx.x, tid = threadIdx.x;
+  for (int g = tid; g < G; g += ST) {
+    const double* m = mom + ((size_t)b * G + g) * 3;
+    group_sm[g] = (float)m[1];
+    group_sm[G + g] = (float)(1.0 / sqrt(fmax(m[2] / m[0], 0.0) + (double)eps));
+  }
+  __syncthreads();
+  const int slots = C / VEC, rows = max(1, ST / slots);
+  const int r = tid / slots;
+  if (r >= rows) return;
+  const int cg = C / G;
+  const size_t base = (size_t)b * hw * C;
+  const int p0 = k * ppb, p1 = min(hw, p0 + ppb);
+  for (int j = tid % slots; j < slots; j += ST) {
+    float mean[VEC], mul[VEC], add[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = j * VEC + i, g = c / cg;
+      mean[i] = group_sm[g];
+      mul[i] = group_sm[G + g] * to_f(scale[c]);
+      add[i] = to_f(bias[c]);
+    }
+    const size_t col = base + (size_t)j * VEC;
+    int p = p0 + r;
+    for (; p + (U - 1) * rows < p1; p += U * rows) {
+      float v[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) load_vals<VEC>(x + col + (size_t)(p + u * rows) * C, v[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float z = fmaf(v[u][i] - mean[i], mul[i], add[i]);
+          v[u][i] = SILU ? silu_fast(z) : z;
+        }
+        store_vals<VEC>(y + col + (size_t)(p + u * rows) * C, v[u]);
+      }
+    }
+    for (; p < p1; p += rows) {
+      float v[VEC];
+      load_vals<VEC>(x + col + (size_t)p * C, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float z = fmaf(v[i] - mean[i], mul[i], add[i]);
+        v[i] = SILU ? silu_fast(z) : z;
+      }
+      store_vals<VEC>(y + col + (size_t)p * C, v);
+    }
+  }
+}
+
+template <typename T, typename PT, int VEC, bool SILU>
+int launch_apply_as(const void* x, const void* mom, const void* scale, const void* bias,
+                    void* y, int B, int hw, int C, int G, int P, int ppb, float eps,
+                    cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)G * sizeof(float);
+  if (smem > 48 * 1024) {  // more than 6144 groups: past the default, up to 227 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        gn_apply_kernel<T, PT, VEC, SILU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gn_apply_kernel<T, PT, VEC, SILU><<<dim3(P, B), ST, smem, stream>>>(
+      (const T*)x, (const double*)mom, (const PT*)scale, (const PT*)bias, (T*)y, hw, C, G, ppb,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename PT, int VEC>
+int launch_apply(const void* x, const void* mom, const void* scale, const void* bias, void* y,
+                 int B, int hw, int C, int G, int P, int ppb, int silu, float eps,
+                 cudaStream_t stream) {
+  return silu ? launch_apply_as<T, PT, VEC, true>(x, mom, scale, bias, y, B, hw, C, G, P, ppb,
+                                                  eps, stream)
+              : launch_apply_as<T, PT, VEC, false>(x, mom, scale, bias, y, B, hw, C, G, P, ppb,
+                                                   eps, stream);
+}
+
+// ---------------------------------------------------------------------------
 // bf16 conv: wgmma
 // ---------------------------------------------------------------------------
 
@@ -355,8 +525,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
   else
     wgmma_m64n64k16(d, da, db);
 }
-
-__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.f + __expf(-z)); }
 
 template <int BN>
 __global__ void __launch_bounds__(NT, 1) gn_conv_wgmma_kernel(
@@ -713,6 +881,34 @@ extern "C" int xm_gn_moments(const void* x, void* part, void* mom, int B, int hw
     if (vec == 4) return launch_moments<float, 4>(x, part, mom, B, hw, C, G, P, ppb, st);
     if (vec == 1) return launch_moments<float, 1>(x, part, mom, B, hw, C, G, P, ppb, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// GroupNorm of x (B, H*W, C) in its own type (x_bf16) into y (same shape and
+// type; 16-byte aligned where vec > 1), given x's moments mom (B, G, 3) from
+// `xm_gn_moments` with the same P, ppb and vec, and scale and bias (C,) in
+// their type (p_bf16): `gn_apply_kernel` on the statistics' (P, B) grid,
+// SiLU fused where silu. A plain GroupNorm call is `xm_gn_moments` and this:
+// three launches, one read of x for the statistics, one for the apply.
+extern "C" int xm_gn_apply(const void* x, const void* mom, const void* scale, const void* bias,
+                           void* y, int B, int hw, int C, int G, int P, int ppb, int vec,
+                           int x_bf16, int p_bf16, int silu, float eps, void* stream) {
+  if (B <= 0 || C <= 0 || hw <= 0) return 0;
+  if (G <= 0 || C % G || P <= 0 || C % vec) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define XM_APPLY(T, VEC)                                                                          \
+  return p_bf16 ? launch_apply<T, bf16, VEC>(x, mom, scale, bias, y, B, hw, C, G, P, ppb, silu,  \
+                                             eps, st)                                            \
+                : launch_apply<T, float, VEC>(x, mom, scale, bias, y, B, hw, C, G, P, ppb, silu, \
+                                              eps, st)
+  if (x_bf16) {
+    if (vec == 8) XM_APPLY(bf16, 8);
+    if (vec == 1) XM_APPLY(bf16, 1);
+  } else {
+    if (vec == 4) XM_APPLY(float, 4);
+    if (vec == 1) XM_APPLY(float, 1);
+  }
+#undef XM_APPLY
   return (int)cudaErrorInvalidValue;
 }
 

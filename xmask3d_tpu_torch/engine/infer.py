@@ -35,6 +35,21 @@ def ensemble_and_route(
 ) -> Dict[str, torch.Tensor]:
     """Per-point class predictions for one view: 'pred' (fused + open
     ensemble) and 'pred_3d', (B, P) int32, plus the normalised text bank."""
+    out = routed_scores(outputs, base_category, novel_category, base_ratio, novel_ratio)
+    for k in ("pred", "pred_3d"):
+        out[k] = out[k].argmax(dim=-1).int()
+    return out
+
+
+def routed_scores(
+    outputs: Dict[str, torch.Tensor],
+    base_category: Sequence[int],
+    novel_category: Sequence[int],
+    base_ratio: float = 0.65,
+    novel_ratio: float = 0.35,
+) -> Dict[str, torch.Tensor]:
+    """`ensemble_and_route` before its argmax: 'pred' and 'pred_3d' are the
+    routed class scores (B, P, L) fp32, -1e10 on the classes routed away."""
     text = _norm(outputs["text_embed_test"].float())
     logit_scale = outputs["logit_scale"]
     fused = _norm(outputs["fused_pred_feature"].float())
@@ -76,8 +91,8 @@ def ensemble_and_route(
 
     logits_3d = logit_scale * torch.einsum("bpc,lc->bpl", feat3d, text)
     return {
-        "pred": route(logits_final).argmax(dim=-1).int(),
-        "pred_3d": route(logits_3d).argmax(dim=-1).int(),
+        "pred": route(logits_final),
+        "pred_3d": route(logits_3d),
         "covered_2d": outputs["covered"],
         "feat_2d": feat2d,
         "binary_pred": binary_pred[..., 0],
@@ -98,6 +113,14 @@ def fill_and_route_2d(
     """The 2D branch's per-point class (B, P) int32: each point takes the
     features of its match (itself where covered, the nearest covered point
     of the view where not), then the base/novel routing of its logits."""
+    return routed_2d_scores(feat_2d, match_idx, binary_pred, text, logit_scale, base_category,
+                            novel_category).argmax(dim=-1).int()
+
+
+def routed_2d_scores(feat_2d, match_idx, binary_pred, text, logit_scale, base_category,
+                     novel_category) -> torch.Tensor:
+    """`fill_and_route_2d` before its argmax: the routed class scores
+    (B, P, L) fp32, -1e10 on the classes routed away."""
     idx = match_idx.long()[..., None].expand(-1, -1, feat_2d.shape[-1])
     filled = torch.gather(feat_2d, 1, idx)
     logits = logit_scale * torch.einsum("bpc,lc->bpl", filled.float(), text)
@@ -106,8 +129,7 @@ def fill_and_route_2d(
     novel_cols = category_columns(text.shape[0], novel_category, dev)
     neg = torch.full((), -1e10, dtype=torch.float32, device=dev)
     bp = binary_pred[..., None]
-    routed = bp * torch.where(novel_cols, neg, logits) + (1 - bp) * torch.where(base_cols, neg, logits)
-    return routed.argmax(dim=-1).int()
+    return bp * torch.where(novel_cols, neg, logits) + (1 - bp) * torch.where(base_cols, neg, logits)
 
 
 def nearest_covered_match(coords: np.ndarray, covered: np.ndarray,

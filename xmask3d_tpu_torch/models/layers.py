@@ -17,6 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xmask3d_tpu_torch.device import device_constant
+from xmask3d_tpu_torch.ops.gn_conv import centred_norm, group_norm
 from xmask3d_tpu_torch.parallel import spatial
 
 EPS = 1e-6
@@ -116,12 +117,20 @@ class GroupNorm(nn.Module):
     as flax computes it: fp32 statistics per (batch, group) in one pass,
     var = max(0, E[x^2] - E[x]^2), then (x - mean) * (rsqrt(var + eps) *
     scale) + bias, cast back to the input's type. Any group size is taken,
-    one value included.
+    one value included. `forward(x, silu=True)` is `F.silu(forward(x))`.
+
+    Outside a band every call goes to `ops/gn_conv.py` `group_norm`: a CUDA
+    tensor in fp32 or bf16 that autograd does not record (eval, `no_grad`,
+    the captured serving graphs, and frozen towers in training: x and both
+    parameters without `requires_grad`) takes the kernel, three launches
+    with SiLU fused and fp64-merged statistics; every other call (CPU
+    tensors, calls autograd records) computes the formula above.
 
     The per-channel fold x * a + (bias - mean * a) would save a pass but
     cancels where |mean| * rsqrt(var + eps) is large (groups of one value
-    near 30 miss flax by 1.7e-3 in fp32), so the centred form stays. The
-    parameters are promoted to fp32 inside the ops that read them.
+    near 30 miss flax by 1.7e-3 in fp32), so the centred form stays, in the
+    kernel too. The parameters are promoted to fp32 inside the ops that read
+    them.
 
     In a band (`parallel/spatial.py`) the fp32 sums of x and x^2 per
     (batch, group) are summed over the ranks (one all-reduce, with
@@ -134,23 +143,20 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         g = self.groups
-        cg = x.shape[-1] // g
-        xf = x.float().reshape(x.shape[0], -1, g, cg)
         band = spatial.current_band()
         if band is None:
-            mean = xf.mean(dim=(1, 3), keepdim=True)
-            var = xf.square().mean(dim=(1, 3), keepdim=True).sub_(mean.square()).clamp_(min=0.0)
-        else:
-            sums = spatial.all_reduce_band(
-                torch.stack([xf.sum(dim=(1, 3)), xf.square().sum(dim=(1, 3))]))
-            sums = (sums / (xf.shape[1] * cg * band.model))[:, :, None, :, None]
-            mean = sums[0]
-            var = (sums[1] - mean.square()).clamp(min=0.0)
-        mul = torch.rsqrt(var.add_(EPS)) * self.weight.reshape(g, cg)
-        y = torch.addcmul(self.bias.reshape(g, cg), xf - mean, mul)
-        return y.reshape(x.shape).to(x.dtype)
+            return group_norm(x, self.weight, self.bias, g, EPS, silu)
+        cg = x.shape[-1] // g
+        xf = x.float().reshape(x.shape[0], -1, g, cg)
+        sums = spatial.all_reduce_band(
+            torch.stack([xf.sum(dim=(1, 3)), xf.square().sum(dim=(1, 3))]))
+        sums = (sums / (xf.shape[1] * cg * band.model))[:, :, None, :, None]
+        mean = sums[0]
+        var = (sums[1] - mean.square()).clamp(min=0.0)
+        y = centred_norm(xf, mean, var, self.weight, self.bias, EPS).reshape(x.shape).to(x.dtype)
+        return F.silu(y) if silu else y
 
 
 def LayerNorm(dim: int) -> nn.LayerNorm:

@@ -71,9 +71,9 @@ class UNetResBlock(RematBlock):
             self.skip = Conv(in_ch, out_ch, 1)
 
     def body(self, x, emb):
-        h = self.in_conv(F.silu(self.in_norm(x)))
+        h = self.in_conv(self.in_norm(x, silu=True))
         h = h + self.emb_proj(F.silu(emb))[:, None, None, :]
-        h = self.out_conv(F.silu(self.out_norm(h)))
+        h = self.out_conv(self.out_norm(h, silu=True))
         if hasattr(self, "skip"):
             x = self.skip(x)
         return x + h
@@ -253,4 +253,4 @@ class SDUNet(nn.Module):
                 out_idx += 1
         if not full:
             return taps
-        return self.out_conv(F.silu(self.out_norm(h))), taps
+        return self.out_conv(self.out_norm(h, silu=True)), taps

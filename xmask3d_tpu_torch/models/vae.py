@@ -70,7 +70,7 @@ class ResnetBlock(RematBlock):
         band with one raw row of each neighbour (`affine_silu_conv`), whose
         outputs on those rows are dropped."""
         if not self.fused_gn:
-            return conv(F.silu(norm(x)))
+            return conv(norm(x, silu=True))
         # the port's Conv stores OIHW; K4 takes HWIO, and on the card its own
         # layout, made again only when the weights or x's type change
         w = conv.weight.permute(2, 3, 1, 0)
@@ -232,7 +232,7 @@ class VAEDecoder(nn.Module):
                 h = getattr(self, f"up_{i_level}_upsample")(h)
         if not full:
             return taps
-        return self.conv_out(F.silu(self.norm_out(h))), taps
+        return self.conv_out(self.norm_out(h, silu=True)), taps
 
 
 class AutoencoderKL(nn.Module):

@@ -20,6 +20,12 @@ count, mean and M2 of the band, merged over its blocks in fp64), the ranks'
 moments merged in rank order by `affine_from_moments` (the affine kernel's
 formula, in fp64, rounded once to fp32), and `affine_silu_conv` (the conv
 kernel on the band with its neighbours' raw edge rows, given the affine).
+
+`group_norm` is the models' plain GroupNorm (`models/layers.py`) on the
+card: the same statistics kernels, merged into moments, then
+`gn_apply_kernel`, which normalises x in the centred form with SiLU fused
+where asked. Calls that autograd records, and CPU tensors, run its plain
+version `group_norm_reference`.
 """
 
 from __future__ import annotations
@@ -217,20 +223,105 @@ class _GroupMoments(torch.autograd.Function):
 
 
 def _launch_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
-    bsz, h, wd, c = x.shape
-    n_blocks, ppb, vec = stats_plan(h * wd, c, x.dtype, aligned=x.data_ptr() % 16 == 0)
-    part = torch.empty((bsz, n_blocks, groups, 2), dtype=torch.float64, device=x.device)
-    mom = torch.empty((bsz, groups, 3), dtype=torch.float64, device=x.device)
-    lib = _build.load("gn_conv")
-    err = lib.xm_gn_moments(_build.ptr(x), _build.ptr(part), _build.ptr(mom), bsz, h * wd, c,
-                            groups, n_blocks, ppb, vec, int(x.dtype == torch.bfloat16),
-                            _build.stream(x.device))
-    _build.check(err, "group_moments")
+    mom, _ = _moments(x, groups)
     group_moments.launches += 1
     return mom
 
 
+def _moments(x: torch.Tensor, groups: int):
+    """`xm_gn_moments` on x (B, ..., C), contiguous: (B, G, 3) fp64 moments
+    and the statistics' plan (`stats_plan`)."""
+    bsz, c = x.shape[0], x.shape[-1]
+    hw = x.numel() // (bsz * c)
+    plan = n_blocks, ppb, vec = stats_plan(hw, c, x.dtype, aligned=x.data_ptr() % 16 == 0)
+    part = torch.empty((bsz, n_blocks, groups, 2), dtype=torch.float64, device=x.device)
+    mom = torch.empty((bsz, groups, 3), dtype=torch.float64, device=x.device)
+    lib = _build.load("gn_conv")
+    err = lib.xm_gn_moments(_build.ptr(x), _build.ptr(part), _build.ptr(mom), bsz, hw, c,
+                            groups, n_blocks, ppb, vec, int(x.dtype == torch.bfloat16),
+                            _build.stream(x.device))
+    _build.check(err, "group statistics")
+    return mom, plan
+
+
 group_moments.launches = 0
+
+
+def centred_norm(xf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """(xf - mean) * (rsqrt(var + eps) * weight) + bias of xf (B, N, G, C/G)
+    fp32 with mean and var (B, 1, G, 1): the plain GroupNorm's last pass. The
+    parameters are promoted to fp32 inside the ops that read them; var is
+    updated in place."""
+    g, cg = xf.shape[2], xf.shape[3]
+    mul = torch.rsqrt(var.add_(eps)) * weight.reshape(g, cg)
+    return torch.addcmul(bias.reshape(g, cg), xf - mean, mul)
+
+
+def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+                         eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
+    """The models' plain GroupNorm over the last axis of x (B, ..., C),
+    computed as flax computes it: fp32 statistics per (batch, group) in one
+    pass, var = max(0, E[x^2] - E[x]^2), then `centred_norm`, cast back to
+    x's type; `F.silu` of that where `silu`."""
+    cg = x.shape[-1] // groups
+    xf = x.float().reshape(x.shape[0], -1, groups, cg)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = xf.square().mean(dim=(1, 3), keepdim=True).sub_(mean.square()).clamp_(min=0.0)
+    y = centred_norm(xf, mean, var, weight, bias, eps).reshape(x.shape).to(x.dtype)
+    return F.silu(y) if silu else y
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+               eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
+    """GroupNorm over the last axis of x (B, ..., C) in `groups` groups, SiLU
+    after it where `silu`; returns x's shape and type.
+
+    On a CUDA tensor (fp32 or bf16, contiguous) that autograd does not
+    record, three launches: K4's statistics (`gn_stats_kernel`, one read of
+    x in its own type) and their fp64 merge (`gn_moments_kernel`), then
+    `gn_apply_kernel` (a second read of x, the centred form in fp32 with
+    SiLU fused, one write in x's type); no fp32 copy of x. The statistics
+    are Welford's with fp64 merges, within rounding of
+    `group_norm_reference`'s one-pass ones. CPU tensors and calls autograd
+    records take `group_norm_reference`, which is differentiable."""
+    if x.ndim < 2 or groups <= 0 or x.shape[-1] % groups:
+        raise ValueError(f"group_norm: x {tuple(x.shape)} in {groups} groups")
+    c = x.shape[-1]
+    if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
+        raise ValueError(f"group_norm: x {tuple(x.shape)} weight {tuple(weight.shape)} "
+                         f"bias {tuple(bias.shape)}")
+    if weight.device != x.device or bias.device != x.device:
+        raise ValueError("group_norm: all inputs must be on one device")
+    if x.device.type != "cpu" and x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"group_norm: unsupported dtype {x.dtype}")
+    _build.record("group_norm", x, weight, bias, groups, eps, silu)
+    if x.device.type == "cpu" or records_grad(x, weight, bias):
+        return group_norm_reference(x, weight, bias, groups, eps, silu)
+    _build.require_contiguous("group_norm", x)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if weight.dtype != bias.dtype or weight.dtype not in (torch.float32, torch.bfloat16):
+        weight, bias = weight.float(), bias.float()
+    weight, bias = weight.contiguous(), bias.contiguous()
+    mom, (n_blocks, ppb, vec) = _moments(x, groups)
+    y = torch.empty_like(x)
+    bsz = x.shape[0]
+    err = _build.load("gn_conv").xm_gn_apply(
+        _build.ptr(x), _build.ptr(mom), _build.ptr(weight), _build.ptr(bias), _build.ptr(y), bsz,
+        x.numel() // (bsz * c), c, groups, n_blocks, ppb, vec, int(x.dtype == torch.bfloat16),
+        int(weight.dtype == torch.bfloat16), int(silu), float(eps), _build.stream(x.device))
+    _build.check(err, "group_norm")
+    group_norm.launches += 1
+    return y
+
+
+group_norm.launches = 0
 
 
 def kernel_params(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
@@ -407,8 +498,10 @@ def _bind(lib):
     lib.xm_gn_affine.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_void_p]
     lib.xm_gn_moments.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.xm_gn_apply.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float, ctypes.c_void_p]
     for fn in (lib.xm_gn_silu_conv_f32, lib.xm_gn_silu_conv_bf16, lib.xm_gn_affine,
-               lib.xm_gn_moments):
+               lib.xm_gn_moments, lib.xm_gn_apply):
         fn.restype = ctypes.c_int
 
 

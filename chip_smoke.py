@@ -120,9 +120,12 @@ Phases, each of which raises on failure:
      their plain versions (bf16 and fp32); one call of each kernel is taken
      back through its autograd Function and held against the plain
      version's autograd on the same inputs (K1's through the gather form of
-     its backward, against the plain version's autograd in fp32, within the
-     forward's tolerance); three counted steps check the launches a step,
-     that every K1 call's backward took the gather form, the variants,
+     its backward and K2's, one call of each shape, through its kernels,
+     `attn_bwd_*`, each holding under 100 MB above its entry, against the
+     plain version's autograd in fp32, within the forward's tolerance); three
+     counted steps check the launches a step, that every K1 call's backward
+     took the gather form and every recorded K2 call's the kernels, the
+     variants,
      every loss, each trainable group's
      gradient (both 3D UNets apart), that no frozen parameter has a
      gradient, and that the masters and the BatchNorm statistics moved;
@@ -135,7 +138,7 @@ Phases, each of which raises on failure:
      for ms a step; one step at batch 8 each way for peak bytes (remat off
      may not fit, which is logged); a profiled step each way gives the
      device's busy time and each kernel's forward and backward
-     device ms;
+     device ms (each K2 backward node launching the three `attn_bwd_*`);
      `ddp` (`ddp_phase`): data parallelism through `parallel/mesh.py`: a
      step with a one-process NCCL group bit for bit the step without one;
      two ranks spawned on the card over gloo against one process at batch
@@ -267,8 +270,17 @@ def expected_train_launches(mc) -> dict:
     n = expected_launches(mc)
     del n["group_norm"]
     if mc.remat_backbone:
-        n["flash_attention"] += n["flash_attention"] - 2  # all but the VAE's two
+        n["flash_attention"] += expected_train_backwards(mc)["flash_attention"]
     return n
+
+
+def expected_train_backwards(mc) -> dict:
+    """A training step's backwards of K1 and K2 by their wrappers' counters
+    (`backward_calls`), all on the kernels: every K1 call (gather form) and
+    every K2 call but the VAE's two, whose inputs need no gradient (the SD
+    UNet's, bf16 at head dims 40 / 80 / 160: `attn_bwd_*`)."""
+    n = expected_launches(mc)
+    return {"sparse_conv": n["sparse_conv"], "flash_attention": n["flash_attention"] - 2}
 
 
 # --------------------------------------------------------------------------
@@ -1858,31 +1870,39 @@ def train_batch(cfg, caps, seed, device=None, batch=None):
     return b
 
 
-def pick_backward_call(name, calls):
-    """The recorded call of each kernel whose backward is checked: K1's
+def pick_backward_calls(name, calls):
+    """The recorded calls of each kernel whose backward is checked: K1's
     first 27-tap conv with a live-row mask (a level's own `kmap3`, whose
-    transpose is SAME_LEVEL), K2's longest self-attention of the narrowest
-    heads (the SD UNet's 4096 tokens at d 40), K3's first call."""
+    transpose is SAME_LEVEL), K2's first call of each shape (its kernels'
+    rounding grows with the keys' common component, which only the model's
+    own activations carry), K3's first call."""
     if name == "sparse_conv":
-        return next(c for c in calls if c[4] is not None and c[1].shape[0] == 27)
+        return [next(c for c in calls if c[4] is not None and c[1].shape[0] == 27)]
     if name == "flash_attention":
-        return max(calls, key=lambda c: (c[0].shape[2] == c[1].shape[2], c[1].shape[2],
-                                         -c[0].shape[3]))
-    return calls[0]
+        return list({(c[0].shape, c[1].shape): c for c in reversed(calls)}.values())
+    return calls[:1]
+
+
+# the most the allocator may hold above its level at entry while K2's kernel
+# backward of one call runs: its gradients and a row of D, never a (Tq, Tk)
+# matrix (the plain VJP held three of 1.07 GB for the 4096-token call at 2 views)
+K2_BACKWARD_BYTES = 100 * 2 ** 20
 
 
 def backward_check(table, name, call, dtype):
     """The call's kernel output taken back through the wrapper's Function
     under a seeded cotangent, against torch.autograd.grad of the plain
-    version on the same inputs: (max abs error, worst error / tolerance).
+    version on the same inputs: (max abs error, worst error / tolerance,
+    bytes the backward held above its entry).
     K1's call passes its map's transpose (SAME_LEVEL), so its backward is
-    the gather form (`k1_dgrad_*`, `k1_wgrad_*` in bf16), held to the plain
-    version's autograd on the same values in fp32 within the forward's
-    tolerance: the plain VJP in bf16 rounds each tap's feature gradient,
-    the kernels once."""
+    the gather form (`k1_dgrad_*`, `k1_wgrad_*` in bf16); K2's bf16 call
+    takes the kernels' backward (`attn_bwd_*`) and holds under
+    K2_BACKWARD_BYTES. Both are held to the plain version's autograd on the
+    same values in fp32 within the forward's tolerance: the plain VJP in
+    bf16 rounds each tap's feature gradient, the kernels once."""
     import torch
 
-    from xmask3d_tpu_torch.ops import sparse_conv
+    from xmask3d_tpu_torch.ops import flash_attention, sparse_conv
 
     k = table[name]
     tol = TOL[dtype]
@@ -1897,11 +1917,17 @@ def backward_check(table, name, call, dtype):
         return fn(*args, **kw), [args[i] for i in diff]
 
     n, forms = k["fn"].launches, dict(sparse_conv.sparse_conv.backward_calls)
+    routes = dict(flash_attention.attention.backward_calls)
     out, xs = run(k["fn"], call, **kwargs)
     gen = torch.Generator(device=out.device).manual_seed(0)
     ct = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = torch.autograd.grad(out, xs, ct)
-    if name == "sparse_conv":
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    if name in ("sparse_conv", "flash_attention"):
         ref_out, ys = run(k["plain"], as_fp32(call))
         ref = torch.autograd.grad(ref_out, ys, ct.float())
     else:
@@ -1913,6 +1939,15 @@ def backward_check(table, name, call, dtype):
     if name == "sparse_conv" and sparse_conv.sparse_conv.backward_calls["kernel"] != \
             forms["kernel"] + 1:
         raise AssertionError("sparse_conv: the backward did not take the gather form")
+    if name == "flash_attention":
+        kernels = dtype == "bf16" and flash_attention.backward_plan(call[0].dtype, call[0].shape[3])
+        route = "kernel" if kernels else "plain"
+        if flash_attention.attention.backward_calls[route] != routes[route] + 1:
+            raise AssertionError(f"flash_attention ({dtype}): the backward did not take the "
+                                 f"{route} route")
+        if kernels and held >= K2_BACKWARD_BYTES:
+            raise AssertionError(f"flash_attention: the kernel backward held {held} bytes above "
+                                 "its entry")
     err, worst = 0.0, 0.0
     for g, r in zip(got, ref):
         if not torch.isfinite(g.float()).all():
@@ -1920,7 +1955,7 @@ def backward_check(table, name, call, dtype):
         e = float((g.float() - r.float()).abs().max())
         err = max(err, e)
         worst = max(worst, e / (tol * max(1.0, float(r.float().abs().max()))))
-    return err, worst
+    return err, worst, held
 
 
 def group_norms(model, labels, store):
@@ -1977,16 +2012,22 @@ def profile_step(step_fn) -> dict:
     for start, stop, n in spans:
         by_name[n] = by_name.get(n, 0.0) + (stop - start) / 1e3
     def kernels_under(e):
-        return len(e.kernels) + sum(kernels_under(c) for c in e.cpu_children)
+        return [x.name for x in e.kernels] + [n for c in e.cpu_children for n in kernels_under(c)]
 
-    backward = {k: {"device_ms": 0.0, "calls": 0, "kernels": 0} for k in prefixes}
+    def short(n):  # "void (anonymous namespace)::attn_bwd_dq_kernel<48>(...)" -> attn_bwd_dq_kernel
+        return n.split("<")[0].split("::")[-1].split("(")[0].split(" ")[-1]
+
+    backward = {k: {"device_ms": 0.0, "calls": 0, "kernels": 0, "names": collections.Counter()}
+                for k in prefixes}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith("autograd::engine::evaluate"):
             for k in prefixes:
                 if BACKWARD_NODES[k] in e.name:
+                    names = kernels_under(e)
                     backward[k]["device_ms"] += e.device_time_total / 1e3
                     backward[k]["calls"] += 1
-                    backward[k]["kernels"] += kernels_under(e)
+                    backward[k]["kernels"] += len(names)
+                    backward[k]["names"].update(short(n) for n in names)
     return {"phase": "train_profile", "wall_ms": wall_ms, "kernels_seen": len(spans),
             "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
             "forward_device_ms": forward, "backward": backward,
@@ -2006,6 +2047,7 @@ def train_phase(cfg, caps, table) -> None:
         create_train_state, make_optimizer, make_train_step)
     from xmask3d_tpu_torch.models.layers import set_remat
     from xmask3d_tpu_torch.models.minkunet import MaskedBatchNorm
+    from xmask3d_tpu_torch.ops.flash_attention import attention
     from xmask3d_tpu_torch.ops.sparse_conv import sparse_conv
 
     t0 = time.time()
@@ -2052,10 +2094,15 @@ def train_phase(cfg, caps, table) -> None:
             cd = cs if dtype == "bf16" else [as_fp32(c) for c in cs]
             err, worst, at, _, outs = max_err(k["fn"], k["plain"], cd, TOL[dtype])
             del outs
-            b_err, b_worst = backward_check(table, name, pick_backward_call(name, cs), dtype)
+            picks = pick_backward_calls(name, cs)
+            checked = [backward_check(table, name, c, dtype) for c in picks]
+            b_err, b_worst = (max(x[i] for x in checked) for i in range(2))
             log({"phase": "train_kernel_check", "kernel": name, "dtype": dtype, "calls": len(cd),
                  "max_abs_err": err, "worst_err_over_tol": worst, "worst_call": at,
                  "backward_max_abs_err": b_err, "backward_worst_err_over_tol": b_worst,
+                 # each checked call: its shape, worst error / tolerance, bytes held
+                 "backward_by_call": [[list(k["shape"](c)), w, h]
+                                      for c, (_, w, h) in zip(picks, checked)],
                  "tol": f"{TOL[dtype]} * max(1, max |plain|)"})
             if not (worst <= 1.0 and b_worst <= 1.0):
                 raise AssertionError(f"{name} ({dtype}): forward {worst}x, backward {b_worst}x "
@@ -2081,6 +2128,7 @@ def train_phase(cfg, caps, table) -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     forms = dict(sparse_conv.backward_calls)
+    routes = dict(attention.backward_calls)
     step_ms, variants, step_metrics = [], {}, []
     with counting_variants(table, variants):
         for b in batches[1:1 + TRAIN_STEPS]:
@@ -2094,18 +2142,25 @@ def train_phase(cfg, caps, table) -> None:
               for m in step_metrics]
     counts = launches()
     forms = {k: n - forms[k] for k, n in sparse_conv.backward_calls.items()}
+    routes = {k: n - routes[k] for k, n in attention.backward_calls.items()}
+    backwards = expected_train_backwards(mc)
     peak = torch.cuda.max_memory_allocated()
     log({"phase": "train_steps", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "step_ms": step_ms,
          "mean_step_ms": sum(step_ms) / TRAIN_STEPS, "peak_bytes": peak, "launches": counts,
-         "expected_per_step": expected, "k1_backward_forms": forms, "variants": variants,
+         "expected_per_step": expected, "k1_backward_forms": forms,
+         "k2_backward_routes": routes, "expected_backwards_per_step": backwards,
+         "variants": variants,
          "losses": losses, "grad_norms": norms})
     for name, n in expected.items():
         if counts[name] != n * TRAIN_STEPS:
             raise AssertionError(f"{name}: {counts[name]} launches over {TRAIN_STEPS} steps, "
                                  f"expected {n * TRAIN_STEPS}")
-    if forms != {"kernel": expected["sparse_conv"] * TRAIN_STEPS, "plain": 0}:
+    if forms != {"kernel": backwards["sparse_conv"] * TRAIN_STEPS, "plain": 0}:
         raise AssertionError(f"K1's backwards by form {forms}: every K1 call of a step should "
                              "take the gather form")
+    if routes != {"kernel": backwards["flash_attention"] * TRAIN_STEPS, "plain": 0}:
+        raise AssertionError(f"K2's backwards by route {routes}: every recorded K2 call of a "
+                             "step should take the kernels")
     check_variants(variants, expected, TRAIN_STEPS)
     for i, (ls, nm) in enumerate(zip(losses, norms)):
         bad = [k for k, v in ls.items() if not math.isfinite(v)]
@@ -2131,7 +2186,14 @@ def train_phase(cfg, caps, table) -> None:
     remat_phase(model, state, step, batches, statics, cfg, caps, labels)
     for on in (True, False):
         set_remat(model, on)
-        log({**profile_step(lambda: step(state, batches[-1], statics, 1.0)), "remat": on})
+        prof = profile_step(lambda: step(state, batches[-1], statics, 1.0))
+        log({**prof, "remat": on})
+        k2 = prof["backward"]["flash_attention"]
+        if k2["calls"] != backwards["flash_attention"] or dict(k2["names"]) != {
+                n: k2["calls"] for n in ("attn_bwd_rowdot_kernel", "attn_bwd_dkdv_kernel",
+                                         "attn_bwd_dq_kernel")}:
+            raise AssertionError(f"K2's backward nodes: {k2['calls']} calls, kernels "
+                                 f"{dict(k2['names'])}: each should launch the three attn_bwd_*")
     set_remat(model, True)
     del model, state, statics, batches
     torch.cuda.empty_cache()

@@ -753,7 +753,8 @@ def test_sparse_conv_gather_backward(cuda, kind, cin, cout):
 @pytest.mark.parametrize("tq,tk,d,h", [(4096, 4096, 40, 8), (4096, 77, 40, 8)])
 def test_flash_attention_backward(cuda, tq, tk, d, h):
     """The SD UNet's self-attention (d 40 x 4096 keys) and its 77-key
-    cross-attention, B = 2: q, k and v."""
+    cross-attention, B = 2: q, k and v (bf16 through the kernels' backward,
+    fp32 the plain VJP)."""
     rng = np.random.RandomState(tk)
     q, k, v = (torch.from_numpy(rng.randn(2, h, t, d).astype(np.float32)).to(cuda)
                for t in (tq, tk, tk))
@@ -761,6 +762,94 @@ def test_flash_attention_backward(cuda, tq, tk, d, h):
         _backward_close(tfa.attention, tfa.reference_attention, (q.to(dt), k.to(dt), v.to(dt)),
                         lambda f, *a: f(*a), tol)
         torch.cuda.empty_cache()
+
+
+# K2's kernel backward (`attn_bwd_*`) at the SD UNet's self-attention of each
+# head dim (8 heads), its 77-key cross-attention, activation sharding's band
+# (half the queries against every key), tensor parallelism's (2, 4, T, d)
+# half of the heads, and an odd head dim (scalar staging)
+K2_BACKWARD = [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
+               (1, 8, 4096, 77, 40), (1, 8, 2048, 4096, 40), (2, 4, 4096, 4096, 40),
+               (2, 4, 1024, 77, 80), (1, 2, 100, 130, 36)]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d", K2_BACKWARD)
+def test_flash_attention_kernel_backward(cuda, b, h, tq, tk, d):
+    """A recorded bf16 call's backward on the kernels, dO handed over as
+    autograd does (the heads' transpose of a (B, T, H, d) gradient): each
+    gradient within 2^-7 of max(1, max |plain|) of the fp32 plain VJP from
+    the same bf16 values and of the kernels' own contract
+    (`attention_backward_reference` on their lse); two runs
+    equal bit for bit; no (Tq, Tk) buffer (under 100 MB above the
+    backward's entry); counted as a kernel backward, launching nothing
+    through the wrapper."""
+    rng = np.random.RandomState(tq + tk + d)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(cuda).bfloat16()
+               for t in (tq, tk, tk))
+    do = torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32)).to(cuda).bfloat16()
+    do = do.transpose(1, 2)
+    assert tfa.backward_plan(q.dtype, d)
+    runs = []
+    for _ in range(2):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        n, before = tfa.attention.launches, dict(tfa.attention.backward_calls)
+        out = tfa.attention(*xs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs.append(torch.autograd.grad(out, xs, do))
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < 100 * 2 ** 20
+        assert tfa.attention.launches == n + 1
+        assert tfa.attention.backward_calls == {"kernel": before["kernel"] + 1,
+                                                "plain": before["plain"]}
+    assert all(torch.equal(a, c) for a, c in zip(*runs)), "not deterministic"
+    ys = [x.float().clone().requires_grad_() for x in (q, k, v)]
+    tfa.reference_attention(*ys).backward(do.float())
+    _, lse = tfa._launch(q, k, v, with_lse=True)
+    contract = tfa.attention_backward_reference(q, k, v, lse, do)
+    tol = 2.0 ** -7
+    for i, (got, y, c) in enumerate(zip(runs[0], ys, contract)):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all(), i
+        for ref in (y.grad, c):
+            err = float((got.float() - ref).abs().max())
+            assert err <= tol * max(1.0, float(ref.abs().max())), (i, err)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("tq,tk,d,h", [(4096, 4096, 40, 8), (1024, 77, 80, 8), (256, 256, 160, 8),
+                                       (64, 64, 160, 8), (100, 130, 36, 2), (70, 77, 20, 3)])
+def test_flash_attention_lse_and_output_bits(cuda, tq, tk, d, h):
+    """The forward a recorded call runs writes each row's log-sum-exp within
+    1e-5 of max(1, |lse|) of the fp32 statement's, and an output equal bit
+    for bit to the forward without lse, which a call under no_grad runs."""
+    rng = np.random.RandomState(tq + d)
+    q, k, v = (torch.from_numpy(rng.randn(2, h, t, d).astype(np.float32)).to(cuda).bfloat16()
+               for t in (tq, tk, tk))
+    o_lse, lse = tfa._launch(q, k, v, with_lse=True)
+    o, none = tfa._launch(q, k, v)
+    assert none is None
+    with torch.no_grad():
+        o_nograd = tfa.attention(q.requires_grad_(), k, v)
+    assert torch.equal(o_lse, o) and torch.equal(o_nograd, o)
+    _, want = tfa.reference_attention_lse(q.detach(), k, v)
+    assert lse.shape == (2, h, tq) and lse.dtype == torch.float32
+    err = float((lse - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+
+
+def test_flash_attention_plain_backward_routes_on_the_card(cuda):
+    """fp32 calls and the VAE's 512-wide head keep the plain VJP: counted
+    as plain, gradients as the plain version's autograd."""
+    rng = np.random.RandomState(21)
+    for dt, h, t, d in ((torch.float32, 2, 256, 40), (torch.bfloat16, 1, 256, 512)):
+        q, k, v = (torch.from_numpy(rng.randn(1, h, t, d).astype(np.float32)).to(cuda).to(dt)
+                   for _ in range(3))
+        before = dict(tfa.attention.backward_calls)
+        _backward_close(tfa.attention, tfa.reference_attention, (q, k, v), lambda f, *a: f(*a),
+                        dict(DTYPES)[dt])
+        assert tfa.attention.backward_calls == {"kernel": before["kernel"],
+                                                "plain": before["plain"] + 1}
 
 
 def test_deform_attn_backward(cuda):

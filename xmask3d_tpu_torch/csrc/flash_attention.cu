@@ -48,6 +48,18 @@
 //
 // fp32 inputs (the tiny reference model, the fp32 kernel checks) keep the
 // CUDA-core kernel `flash_fma_kernel`: TF32 would not hold their 1e-4.
+//
+// Backward (bf16, d <= 160; the JAX package takes it from the XLA formulation
+// through `custom_vjp`, so it replaces no TPU kernel): a call autograd records
+// runs `flash_mma_kernel` with LSE = 1, which also stores each row's
+// log-sum-exp, and its backward is three launches, `attn_bwd_rowdot`,
+// `attn_bwd_dkdv` and `attn_bwd_dq` (below). The plain VJP it replaces held
+// three fp32 (Tq, Tk) matrices at once (4.3 GB each for 8 views of the SD
+// UNet's 4096-token calls); these kernels recompute P tile by tile from lse,
+// so a call's backward holds its gradients and a row of D and nothing more.
+// Like the forward, they are bound by the tensor cores: 9 products of
+// 2 Tq Tk d (S three times, dP three times, dV, dK, dQ) against ~9 T d bytes a
+// head.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,12 +88,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Rows row0 .. row0 + ROWS of a (rows, d) matrix into a ROWS x (DP + 8) tile;
-// rows >= rows and columns >= d become zeros. vec: 16-byte cp.async chunks
-// (d % 8 == 0, 16-byte aligned base), else scalar loads and one 16-byte store.
+// Rows row0 .. row0 + ROWS of a (rows, d) matrix whose rows lie `ld` values
+// apart into a ROWS x (DP + 8) tile; rows >= rows and columns >= d become
+// zeros. vec: 16-byte cp.async chunks (d % 8 == 0, ld % 8 == 0, 16-byte
+// aligned base), else scalar loads and one 16-byte store.
 template <int ROWS, int DP, int NT>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int row0, int rows, int d,
-                                           bool vec, int tid) {
+                                           int ld, bool vec, int tid) {
   constexpr int CH = DP / 8, LD = DP + 8;
   for (int e = tid; e < ROWS * CH; e += NT) {
     const int r = e / CH, c = (e % CH) * 8;
@@ -89,12 +102,12 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int row0,
     bf16* dp = dst + r * LD + c;
     const bool in = gr < rows && c < d;
     if (vec) {
-      cp_async_16(dp, in ? src + (size_t)gr * d + c : src, in ? 16 : 0);
+      cp_async_16(dp, in ? src + (size_t)gr * ld + c : src, in ? 16 : 0);
     } else {
       uint4 packed = make_uint4(0u, 0u, 0u, 0u);
       if (in) {
         bf16* h = reinterpret_cast<bf16*>(&packed);
-        const bf16* sp = src + (size_t)gr * d + c;
+        const bf16* sp = src + (size_t)gr * ld + c;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           if (c + j < d) h[j] = sp[j];
@@ -121,10 +134,12 @@ struct MmaCfg {
   static constexpr size_t bytes = sizeof(bf16) * (size_t)LD * (BQ + 2 * NS * BK);
 };
 
-template <int DP, int NW, int BK, int NS>
+// LSE = 1 also stores each query row's log-sum-exp of the scaled scores
+// (natural log, fp32) for the backward; the output is the same either way.
+template <int DP, int NW, int BK, int NS, int LSE>
 __global__ void __launch_bounds__(32 * NW) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int tq, int tk, int d, float sl2, int vec) {
+    bf16* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float sl2, int vec) {
   using C = MmaCfg<DP, NW, BK, NS>;
   constexpr int BQ = C::BQ, LD = C::LD, NT = C::NT;
   constexpr bool QREG = DP <= 80;  // Q fragments live in registers
@@ -144,11 +159,11 @@ __global__ void __launch_bounds__(32 * NW) flash_mma_kernel(
 
   // Tile it + NS - 1 loads while tile it multiplies. One commit per tile,
   // empty past the end, keeps the group count in step with it.
-  stage_tile<BQ, DP, NT>(q_s, q_b, q0, tq, d, vec, tid);
+  stage_tile<BQ, DP, NT>(q_s, q_b, q0, tq, d, d, vec, tid);
   for (int p = 0; p < (NS > 1 ? NS - 1 : 1); ++p) {
     if (p < n_tiles) {
-      stage_tile<BK, DP, NT>(k_s + p * BK * LD, k_b, p * BK, tk, d, vec, tid);
-      stage_tile<BK, DP, NT>(v_s + p * BK * LD, v_b, p * BK, tk, d, vec, tid);
+      stage_tile<BK, DP, NT>(k_s + p * BK * LD, k_b, p * BK, tk, d, d, vec, tid);
+      stage_tile<BK, DP, NT>(v_s + p * BK * LD, v_b, p * BK, tk, d, d, vec, tid);
     }
     cp_async_commit();
   }
@@ -168,8 +183,8 @@ __global__ void __launch_bounds__(32 * NW) flash_mma_kernel(
     if (NS > 1) {
       const int nx = it + NS - 1;
       if (nx < n_tiles) {
-        stage_tile<BK, DP, NT>(k_s + (nx % NS) * BK * LD, k_b, nx * BK, tk, d, vec, tid);
-        stage_tile<BK, DP, NT>(v_s + (nx % NS) * BK * LD, v_b, nx * BK, tk, d, vec, tid);
+        stage_tile<BK, DP, NT>(k_s + (nx % NS) * BK * LD, k_b, nx * BK, tk, d, d, vec, tid);
+        stage_tile<BK, DP, NT>(v_s + (nx % NS) * BK * LD, v_b, nx * BK, tk, d, d, vec, tid);
       }
       cp_async_commit();
     }
@@ -266,6 +281,8 @@ __global__ void __launch_bounds__(32 * NW) flash_mma_kernel(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     const int qi = q0 + warp * 16 + g + 8 * r;
     if (qi >= tq) continue;
+    if (LSE && t == 0)  // log2 of the row's sum of 2^(s sl2), in natural-log units
+      lse[(size_t)bh * tq + qi] = (m_run[r] * sl2 + log2f(l_run[r])) * 0.6931471805599453f;
     const float inv = 1.f / l_run[r];
     bf16* o_row = o + ((size_t)bh * tq + qi) * d;
 #pragma unroll
@@ -306,10 +323,10 @@ __global__ void __launch_bounds__(128 * NRG) flash_wide_kernel(
   const bf16* v_b = v + (size_t)bh * tk * d;
   const int n_tiles = (tk + BK - 1) / BK;
 
-  stage_tile<BQ, DP, NT>(q_s, q_b, q0, tq, d, vec, tid);
-  stage_tile<BK, DP, NT>(k_s, k_b, 0, tk, d, vec, tid);
+  stage_tile<BQ, DP, NT>(q_s, q_b, q0, tq, d, d, vec, tid);
+  stage_tile<BK, DP, NT>(k_s, k_b, 0, tk, d, d, vec, tid);
   cp_async_commit();
-  stage_tile<BK, DP, NT>(v_s, v_b, 0, tk, d, vec, tid);
+  stage_tile<BK, DP, NT>(v_s, v_b, 0, tk, d, d, vec, tid);
   cp_async_commit();
 
   float acc[16][4];
@@ -354,7 +371,7 @@ __global__ void __launch_bounds__(128 * NRG) flash_wide_kernel(
       if (t == 0) x_s[cq * BQ + rg * 16 + g + 8 * r] = mt[r];
     }
     __syncthreads();  // maxima visible; K(it) consumed
-    if (it + 1 < n_tiles) stage_tile<BK, DP, NT>(k_s, k_b, (it + 1) * BK, tk, d, vec, tid);
+    if (it + 1 < n_tiles) stage_tile<BK, DP, NT>(k_s, k_b, (it + 1) * BK, tk, d, d, vec, tid);
     cp_async_commit();
 
     float alpha[2];
@@ -398,7 +415,7 @@ __global__ void __launch_bounds__(128 * NRG) flash_wide_kernel(
       }
     }
     __syncthreads();  // V(it), P and the maxima consumed
-    if (it + 1 < n_tiles) stage_tile<BK, DP, NT>(v_s, v_b, (it + 1) * BK, tk, d, vec, tid);
+    if (it + 1 < n_tiles) stage_tile<BK, DP, NT>(v_s, v_b, (it + 1) * BK, tk, d, d, vec, tid);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -423,33 +440,33 @@ __global__ void __launch_bounds__(128 * NRG) flash_wide_kernel(
   }
 }
 
-template <int DP, int NW, int BK, int NS>
-int run_mma(const void* q, const void* k, const void* v, void* o, int bh, int tq, int tk, int d,
-            float sl2, int vec, cudaStream_t stream) {
+template <int DP, int NW, int BK, int NS, int LSE>
+int run_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int tq,
+            int tk, int d, float sl2, int vec, cudaStream_t stream) {
   using C = MmaCfg<DP, NW, BK, NS>;
-  auto kern = flash_mma_kernel<DP, NW, BK, NS>;
+  auto kern = flash_mma_kernel<DP, NW, BK, NS, LSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((tq + C::BQ - 1) / C::BQ, bh);
   kern<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-                                          tq, tk, d, sl2, vec);
+                                          lse, tq, tk, d, sl2, vec);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int run_mma_dp(const void* q, const void* k, const void* v, void* o, int bh, int tq, int tk, int d,
-               float sl2, int vec, int single, cudaStream_t s) {
-  if (single) return run_mma<DP, 4, 80, 1>(q, k, v, o, bh, tq, tk, d, sl2, vec, s);
+template <int DP, int LSE>
+int run_mma_dp(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int tq,
+               int tk, int d, float sl2, int vec, int single, cudaStream_t s) {
+  if (single) return run_mma<DP, 4, 80, 1, LSE>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, s);
   // narrow heads with enough query rows to fill the card's 132 SMs with
   // 128-row blocks: 8 warps a block. Measured at 4096 x 4096 x d40 with three
   // stages: 126 us against 146 with 4 warps (150 with two stages, 198 with
   // 128-key tiles; NVIDIA H100 80GB HBM3, 700 W).
   if constexpr (DP <= 80) {
     if ((long)((tq + 127) / 128) * bh >= 132)
-      return run_mma<DP, 8, 64, 3>(q, k, v, o, bh, tq, tk, d, sl2, vec, s);
+      return run_mma<DP, 8, 64, 3, LSE>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, s);
   }
-  return run_mma<DP, 4, 64, 3>(q, k, v, o, bh, tq, tk, d, sl2, vec, s);
+  return run_mma<DP, 4, 64, 3, LSE>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, s);
 }
 
 template <int NRG>
@@ -464,6 +481,383 @@ int run_wide(const void* q, const void* k, const void* v, void* o, int bh, int t
   kern<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
                                           tq, tk, d, sl2, vec);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward (FlashAttention-2): the forward under a gradient saved the
+// row log-sum-exp; P = exp(S / sqrt(d) - lse) is recomputed tile by tile and
+// no (Tq, Tk) matrix reaches device memory. Three launches:
+//   attn_bwd_rowdot: a block per (b*h, 64-query tile); each warp owns 16
+//                    queries and walks the key tiles: S, P, dP = dO V^T,
+//                    D = rowsum(P o dP) (= rowsum(dO o O) for the unrounded O);
+//   attn_bwd_dkdv:   a block per (b*h, 64-key tile); each warp owns 16 keys
+//                    and walks the query tiles: S^T = K Q^T, P^T, dV += P^T dO,
+//                    dP^T = V dO^T, dS^T = P^T o (dP^T - D), dK += dS^T Q;
+//   attn_bwd_dq:     the rowdot walk again with D known: dS, dQ += dS K.
+// Each warp computes the transposed product (keys as rows) where its rows
+// are keys, so P^T and dS^T leave the accumulators as the A operands of the
+// next product, as P does in the forward: nothing goes through shared memory
+// but the staged tiles. Every gradient is summed by one thread in a fixed
+// order (no atomics): the same inputs give the same bits. Products run on
+// the tensor cores in bf16 (P and dS rounded as operands only) with fp32
+// accumulators; exponentials, D and dP - D are fp32. Tiles come through the
+// forward's `stage_tile` (cp.async, zero-filled edges), two stages a ring.
+// Ragged edges: a missing query row is zeros in Q and dO with lse = D = 0,
+// so its P is 1 and its dP and dS 0; a missing key gets P = 0 in the query
+// walks, and its dK / dV rows are never stored.
+// ---------------------------------------------------------------------------
+
+// 4-byte asynchronous copy (src-size 0 writes a zero): the lse and D rows
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// the rows of dO, which autograd may hand over as a view of (B, T, H, d)
+struct RowView {
+  const bf16* p;
+  int heads, sb, sh, st;  // strides in values of batch, head, row (the column stride is 1)
+  __device__ __forceinline__ const bf16* head(int bh) const {
+    return p + (size_t)(bh / heads) * sb + (size_t)(bh % heads) * sh;
+  }
+};
+
+// 16 rows (keys or queries) of this warp x BN columns (queries or keys):
+// acc = A B^T over the head dim, A from `a_s` (rows warp*16.., or the
+// fragments `af` when AREG), B rows from `b_s`; both tiles of stride LD.
+template <int DP, int BN, bool AREG>
+__device__ __forceinline__ void warp_abt(float (&acc)[BN / 8][4], const uint32_t (&af)[AREG ? DP / 16 : 1][4],
+                                         const bf16* a_s, const bf16* b_s, int warp, int lane) {
+  constexpr int LD = DP + 8;
+  const int quad = lane >> 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    uint32_t a[4];
+    if constexpr (AREG) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = af[ks][i];
+    } else {
+      ldmatrix_x4(a, a_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+    }
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_s + (np * 16 + (quad >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (quad & 1) * 8);
+      mma_16816(acc[2 * np], a, b[0], b[1]);
+      mma_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out (16 x DP) += X B, X the warp's 16 x BN fp32 accumulator rounded to bf16
+// as the A operand, B a BN x DP tile of stride LD (rows along X's columns)
+template <int DP, int BN>
+__device__ __forceinline__ void warp_xb(float (&out)[DP / 8][4], const float (&x)[BN / 8][4],
+                                        const bf16* b_s, int lane) {
+  constexpr int LD = DP + 8;
+  const int quad = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, b_s + (kk * 16 + (quad & 1) * 8 + (lane & 7)) * LD + np * 16 + (quad >> 1) * 8);
+      mma_16816(out[2 * np], a, b[0], b[1]);
+      mma_16816(out[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int DP, int BQ>
+struct DkdvCfg {
+  static constexpr int NW = 4, BK = 64, NS = 2, LD = DP + 8, NT = 32 * NW;
+  static constexpr size_t bytes =
+      sizeof(bf16) * (size_t)LD * (2 * BK + 2 * NS * BQ) + sizeof(float) * 2 * NS * BQ;
+};
+
+template <int DP, int BQ>
+__global__ void __launch_bounds__(128) attn_bwd_dkdv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    RowView dout, const float* __restrict__ lse, const float* __restrict__ dd,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk, int d, float sl2, float scale,
+    int vec) {
+  using C = DkdvCfg<DP, BQ>;
+  constexpr int BK = C::BK, NS = C::NS, LD = C::LD, NT = C::NT;
+  constexpr bool AREG = DP <= 48;  // K and V fragments live in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
+  bf16* v_s = k_s + BK * LD;                      // BK x LD
+  bf16* q_s = v_s + BK * LD;                      // NS x BQ x LD
+  bf16* g_s = q_s + NS * BQ * LD;                 // NS x BQ x LD (dO)
+  float* l_s = reinterpret_cast<float*>(g_s + NS * BQ * LD);  // NS x BQ (lse, log2 units later)
+  float* d_s = l_s + NS * BQ;                                 // NS x BQ
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = lane & 3;
+  const bf16* q_b = q + (size_t)bh * tq * d;
+  const bf16* g_b = dout.head(bh);
+  const float* l_b = lse + (size_t)bh * tq;
+  const float* d_b = dd + (size_t)bh * tq;
+  const int n_tiles = (tq + BQ - 1) / BQ;
+
+  auto stage = [&](int i) {
+    const int buf = i % NS;
+    stage_tile<BQ, DP, NT>(q_s + buf * BQ * LD, q_b, i * BQ, tq, d, d, vec, tid);
+    stage_tile<BQ, DP, NT>(g_s + buf * BQ * LD, g_b, i * BQ, tq, d, dout.st, vec, tid);
+    for (int e = tid; e < BQ; e += NT) {
+      const int qi = i * BQ + e;
+      cp_async_4(l_s + buf * BQ + e, qi < tq ? l_b + qi : l_b, qi < tq ? 4 : 0);
+      cp_async_4(d_s + buf * BQ + e, qi < tq ? d_b + qi : d_b, qi < tq ? 4 : 0);
+    }
+  };
+  stage_tile<BK, DP, NT>(k_s, k + (size_t)bh * tk * d, k0, tk, d, d, vec, tid);
+  stage_tile<BK, DP, NT>(v_s, v + (size_t)bh * tk * d, k0, tk, d, d, vec, tid);
+  stage(0);
+  cp_async_commit();
+
+  uint32_t kf[AREG ? DP / 16 : 1][4], vf[AREG ? DP / 16 : 1][4];
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it % NS;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; tile it - 1 is consumed, so its stage is free
+    if (it + 1 < n_tiles) stage(it + 1);
+    cp_async_commit();
+    if (AREG && it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        ldmatrix_x4(kf[ks], k_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(vf[ks], v_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+      }
+    }
+    const bf16* qb = q_s + buf * BQ * LD;
+    const bf16* gb = g_s + buf * BQ * LD;
+    const float* lb = l_s + buf * BQ;
+    const float* db = d_s + buf * BQ;
+
+    // P^T = exp(S^T / sqrt(d) - lse): this warp's 16 keys x BQ queries
+    float p[BQ / 8][4];
+    warp_abt<DP, BQ, AREG>(p, kf, k_s, qb, warp, lane);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lb + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[j][e] = fast_exp2(p[j][e] * sl2 - ((e & 1) ? l2.y : l2.x) * 1.4426950408889634f);
+    }
+    warp_xb<DP, BQ>(dv_acc, p, gb, lane);  // dV += P^T dO
+
+    // dS^T = P^T o (dP^T - D), dP^T = V dO^T
+    float ds[BQ / 8][4];
+    warp_abt<DP, BQ, AREG>(ds, vf, v_s, gb, warp, lane);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(db + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
+    }
+    warp_xb<DP, BQ>(dk_acc, ds, qb, lane);  // dK += dS^T Q (scaled at the store)
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = k0 + warp * 16 + g + 8 * r;
+    if (ki >= tk) continue;
+    bf16* dk_row = dk + ((size_t)bh * tk + ki) * d;
+    bf16* dv_row = dv + ((size_t)bh * tk + ki) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      store_pair(dk_row, j * 8 + 2 * t, d, dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
+      store_pair(dv_row, j * 8 + 2 * t, d, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int DP>
+struct DqCfg {
+  static constexpr int NW = 4, BQ = 64, BK = 64, NS = 2, LD = DP + 8, NT = 32 * NW;
+  static constexpr size_t bytes = sizeof(bf16) * (size_t)LD * (2 * BQ + 2 * NS * BK);
+};
+
+// A block's 64 queries against every key tile: S, P and dP = dO V^T. ROWDOT
+// sums D = rowsum(P o dP) and stores it; else it reads D and accumulates
+// dQ += dS K, dS = P o (dP - D), and stores dQ.
+template <int DP, bool ROWDOT>
+__device__ __forceinline__ void query_walk(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const RowView& dout, const float* __restrict__ lse, float* __restrict__ dd,
+    bf16* __restrict__ dq, int tq, int tk, int d, float sl2, float scale, int vec) {
+  using C = DqCfg<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS, LD = C::LD, NT = C::NT;
+  constexpr bool AREG = DP <= 80;  // Q and dO fragments live in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* g_s = q_s + BQ * LD;                      // BQ x LD (dO)
+  bf16* k_s = g_s + BQ * LD;                      // NS x BK x LD
+  bf16* v_s = k_s + NS * BK * LD;                 // NS x BK x LD
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* k_b = k + (size_t)bh * tk * d;
+  const bf16* v_b = v + (size_t)bh * tk * d;
+  const int n_tiles = (tk + BK - 1) / BK;
+
+  stage_tile<BQ, DP, NT>(q_s, q + (size_t)bh * tq * d, q0, tq, d, d, vec, tid);
+  stage_tile<BQ, DP, NT>(g_s, dout.head(bh), q0, tq, d, dout.st, vec, tid);
+  stage_tile<BK, DP, NT>(k_s, k_b, 0, tk, d, d, vec, tid);
+  stage_tile<BK, DP, NT>(v_s, v_b, 0, tk, d, d, vec, tid);
+  cp_async_commit();
+
+  float l2[2], dr[2];  // the rows' lse in log2 units and D (0 past the edge, or summed here)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    l2[r] = qi < tq ? lse[(size_t)bh * tq + qi] * 1.4426950408889634f : 0.f;
+    dr[r] = qi < tq && !ROWDOT ? dd[(size_t)bh * tq + qi] : 0.f;
+  }
+  uint32_t qf[AREG ? DP / 16 : 1][4], gf[AREG ? DP / 16 : 1][4];
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it % NS;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; tile it - 1 is consumed, so its stage is free
+    if (it + 1 < n_tiles) {
+      stage_tile<BK, DP, NT>(k_s + (buf ^ 1) * BK * LD, k_b, (it + 1) * BK, tk, d, d, vec, tid);
+      stage_tile<BK, DP, NT>(v_s + (buf ^ 1) * BK * LD, v_b, (it + 1) * BK, tk, d, d, vec, tid);
+    }
+    cp_async_commit();
+    if (AREG && it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(gf[ks], g_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+      }
+    }
+    const bf16* kb = k_s + buf * BK * LD;
+    const bf16* vb = v_s + buf * BK * LD;
+
+    // P = exp(S / sqrt(d) - lse): this warp's 16 queries x BK keys
+    float p[BK / 8][4];
+    warp_abt<DP, BK, AREG>(p, qf, q_s, kb, warp, lane);
+    const int kmax = tk - it * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[j][e] = j * 8 + 2 * t + (e & 1) < kmax ? fast_exp2(p[j][e] * sl2 - l2[e >> 1]) : 0.f;
+
+    // dP = dO V^T; then D += P o dP, or dS = P o (dP - D)
+    float ds[BK / 8][4];
+    warp_abt<DP, BK, AREG>(ds, gf, g_s, vb, warp, lane);
+    if constexpr (ROWDOT) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dr[e >> 1] = fmaf(p[j][e], ds[j][e], dr[e >> 1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dr[e >> 1]);
+      warp_xb<DP, BK>(acc, ds, kb, lane);  // dQ += dS K (scaled at the store)
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if constexpr (ROWDOT) {  // the quad's four partial sums, in a fixed order
+      dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 1);
+      dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 2);
+      if (qi < tq && t == 0) dd[(size_t)bh * tq + qi] = dr[r];
+    } else {
+      if (qi >= tq) continue;
+      bf16* row = dq + ((size_t)bh * tq + qi) * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+        store_pair(row, j * 8 + 2 * t, d, acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    }
+  }
+}
+
+// D = rowsum(dO o O) for the unrounded O = P V, as rowsum(P o dP): the bf16
+// output the forward stored would put D's rounding, times the keys' common
+// component, into every dQ (1-2.5x the tolerance on the SD UNet's calls)
+template <int DP>
+__global__ void __launch_bounds__(128) attn_bwd_rowdot_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    RowView dout, const float* __restrict__ lse, float* __restrict__ dd, int tq, int tk, int d,
+    float sl2, int vec) {
+  query_walk<DP, true>(q, k, v, dout, lse, dd, nullptr, tq, tk, d, sl2, 0.f, vec);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128) attn_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    RowView dout, const float* __restrict__ lse, float* __restrict__ dd, bf16* __restrict__ dq,
+    int tq, int tk, int d, float sl2, float scale, int vec) {
+  query_walk<DP, false>(q, k, v, dout, lse, dd, dq, tq, tk, d, sl2, scale, vec);
+}
+
+template <int DP>
+int run_backward(const void* q, const void* k, const void* v, RowView dout, const float* lse,
+                 float* dd, void* dq, void* dk, void* dv, int bh, int tq, int tk, int d, float sl2,
+                 float scale, int vec, cudaStream_t s) {
+  using Q = DqCfg<DP>;
+  const dim3 q_grid((tq + Q::BQ - 1) / Q::BQ, bh);
+  auto rowdot = attn_bwd_rowdot_kernel<DP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(rowdot, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q::bytes);
+  if (err != cudaSuccess) return (int)err;
+  rowdot<<<q_grid, Q::NT, Q::bytes, s>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, dout, lse,
+                                         dd, tq, tk, d, sl2, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dk != nullptr) {
+    constexpr int BQ = DP <= 80 ? 64 : 32;  // 160 wide: fewer score registers beside dK and dV
+    using C = DkdvCfg<DP, BQ>;
+    auto kern = attn_bwd_dkdv_kernel<DP, BQ>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<dim3((tk + C::BK - 1) / C::BK, bh), C::NT, C::bytes, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, dout, lse, dd, (bf16*)dk, (bf16*)dv, tq, tk,
+        d, sl2, scale, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (dq != nullptr) {
+    auto kern = attn_bwd_dq_kernel<DP>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q::bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<q_grid, Q::NT, Q::bytes, s>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, dout, lse,
+                                         dd, (bf16*)dq, tq, tk, d, sl2, scale, vec);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------
@@ -618,22 +1012,55 @@ extern "C" int xm_flash_attention_f32(const void* q, const void* k, const void* 
 
 // dp: the padded head dim of the variant (48, 80, 128, 160 or 512); single: K/V
 // is one tile of at most 80 keys (dp <= 160 only); vec: 16-byte copies allowed.
-// The wrapper chooses all three (`variant` in ops/flash_attention.py).
+// The wrapper chooses all three (`variant` in ops/flash_attention.py). A
+// non-null lse (bh x tq fp32) also receives each row's log-sum-exp for the
+// backward; dp is then the backward's width, 48, 80 or 160 (`backward_plan`).
 extern "C" int xm_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                       int bh, int tq, int tk, int d, int dp, int single, int vec,
-                                       void* stream) {
+                                       float* lse, int bh, int tq, int tk, int d, int dp,
+                                       int single, int vec, void* stream) {
   if (bh <= 0 || tq <= 0) return 0;
   if (tk <= 0 || d > dp || (single && tk > 80)) return (int)cudaErrorInvalidValue;
   const float sl2 = 1.4426950408889634f / sqrtf((float)d);
   cudaStream_t s = (cudaStream_t)stream;
+  if (lse != nullptr) {
+    switch (dp) {
+      case 48: return run_mma_dp<48, 1>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, single, s);
+      case 80: return run_mma_dp<80, 1>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, single, s);
+      case 160: return run_mma_dp<160, 1>(q, k, v, o, lse, bh, tq, tk, d, sl2, vec, single, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (dp) {
-    case 48: return run_mma_dp<48>(q, k, v, o, bh, tq, tk, d, sl2, vec, single, s);
-    case 80: return run_mma_dp<80>(q, k, v, o, bh, tq, tk, d, sl2, vec, single, s);
-    case 128: return run_mma_dp<128>(q, k, v, o, bh, tq, tk, d, sl2, vec, single, s);
-    case 160: return run_mma_dp<160>(q, k, v, o, bh, tq, tk, d, sl2, vec, single, s);
+    case 48: return run_mma_dp<48, 0>(q, k, v, o, nullptr, bh, tq, tk, d, sl2, vec, single, s);
+    case 80: return run_mma_dp<80, 0>(q, k, v, o, nullptr, bh, tq, tk, d, sl2, vec, single, s);
+    case 128: return run_mma_dp<128, 0>(q, k, v, o, nullptr, bh, tq, tk, d, sl2, vec, single, s);
+    case 160: return run_mma_dp<160, 0>(q, k, v, o, nullptr, bh, tq, tk, d, sl2, vec, single, s);
     case 512:
       if (single) return (int)cudaErrorInvalidValue;
       return run_wide<2>(q, k, v, o, bh, tq, tk, d, sl2, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dQ, dK, dV of a bf16 call from q, k, v (contiguous (B, H, T, d)), dO
+// (rows of d values with strides sb / sh / st along batch, head and row), the
+// forward's lse and D scratch (bh x tq fp32). dq, or dk and dv together, may be
+// null: that launch is skipped. dp 48, 80 or 160; vec: 16-byte copies of q,
+// k, v and dO's rows allowed (d, the bases and dO's strides on 16 bytes).
+extern "C" int xm_attn_backward_bf16(const void* q, const void* k, const void* v,
+                                     const void* dout, const float* lse, float* dd, void* dq,
+                                     void* dk, void* dv, int batch, int heads, int tq, int tk,
+                                     int d, int sb, int sh, int st, int dp, int vec, void* stream) {
+  const int bh = batch * heads;
+  if (bh <= 0 || tq <= 0) return 0;
+  if (tk <= 0 || d > dp || (dk == nullptr) != (dv == nullptr)) return (int)cudaErrorInvalidValue;
+  const float sl2 = 1.4426950408889634f / sqrtf((float)d), scale = 1.f / sqrtf((float)d);
+  const RowView g{(const bf16*)dout, heads, sb, sh, st};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dp) {
+    case 48: return run_backward<48>(q, k, v, g, lse, dd, dq, dk, dv, bh, tq, tk, d, sl2, scale, vec, s);
+    case 80: return run_backward<80>(q, k, v, g, lse, dd, dq, dk, dv, bh, tq, tk, d, sl2, scale, vec, s);
+    case 160: return run_backward<160>(q, k, v, g, lse, dd, dq, dk, dv, bh, tq, tk, d, sl2, scale, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }
